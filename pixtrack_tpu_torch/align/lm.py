@@ -1,0 +1,217 @@
+"""Levenberg-Marquardt feature-metric pose alignment.
+
+Port of ``AlignConfig``, ``LevelData``, ``AlignState``, ``residual_cost``,
+``align_level`` and ``align_pyramid`` from ``pixtrack_tpu/align/lm.py``.
+
+The JAX ``lax.while_loop`` becomes a Python loop over the same masked carry:
+once ``done`` is set (or the budget is spent) an iteration changes nothing
+and ``num_iters`` stops counting, so the result and the count match the JAX
+loop exactly. The host reads ``done`` only every ``_CHECK_EVERY``
+iterations, which keeps the loop free of a device sync per iteration.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+from pixtrack_tpu_torch.align.interpolate import interpolate_features, interpolate_scalar
+from pixtrack_tpu_torch.geometry import Camera, Pose
+from pixtrack_tpu_torch.geometry.rotation import so3_hat
+
+_CHECK_EVERY = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class AlignConfig:
+    """LM configuration; the fields and defaults of the JAX AlignConfig."""
+
+    num_iters: int = 150
+    lambda_init: float = 1e-2
+    lambda_up: float = 10.0
+    lambda_down: float = 0.1
+    lambda_min: float = 1e-7
+    lambda_max: float = 1e4
+    grad_stop_criteria: float = 1e-4
+    dt_stop_criteria: float = 5e-3
+    dR_stop_criteria: float = 5e-4  # degrees
+    robust_c: float = 0.5
+    use_confidence: bool = True
+    confidence_floor: float = 0.2
+    eps: float = 1e-8
+    stagnation_iters: int = 10
+    cost_rel_tol: float = 1e-4
+    min_valid_frac: float = 0.5
+    level_arbitration: bool = True
+
+
+@dataclasses.dataclass
+class LevelData:
+    """One pyramid level's observations: p3d (N, 3), f_ref (N, C), w_ref (N,),
+    mask (N,) bool, fmap (H, W, C), conf (H, W) or None, scale (2,)."""
+
+    p3d: torch.Tensor
+    f_ref: torch.Tensor
+    w_ref: torch.Tensor
+    mask: torch.Tensor
+    fmap: torch.Tensor
+    conf: Optional[torch.Tensor]
+    scale: torch.Tensor
+
+
+@dataclasses.dataclass
+class AlignState:
+    T: Pose
+    cost: torch.Tensor
+    num_valid: torch.Tensor
+    num_iters: torch.Tensor
+    converged: torch.Tensor
+    grad_norm: torch.Tensor
+
+
+def _point_weights(e2, cq, valid, data: LevelData, cfg: AlignConfig):
+    """(static weights, static x Cauchy robust weights) per point."""
+    w_static = valid.float()
+    if cfg.use_confidence:
+        w_static = w_static * data.w_ref
+        if cq is not None:
+            fl = cfg.confidence_floor
+            w_static = w_static * (fl + (1.0 - fl) * cq.clamp(0.0, 1.0))
+    return w_static, w_static / (1.0 + e2 / cfg.robust_c**2)
+
+
+def _pixel_pose_jacobian(p_cam, camera: Camera, scale):
+    """d p2d_feature / d (w, v) for the left se(3) update: (N, 2, 6)."""
+    N = p_cam.shape[0]
+    eye = torch.eye(3, dtype=p_cam.dtype, device=p_cam.device).expand(N, 3, 3)
+    J_pcam = torch.cat([-so3_hat(p_cam), eye], dim=-1)
+    J_proj = camera.project_jacobian(p_cam) * scale[None, :, None]
+    return J_proj @ J_pcam
+
+
+def _mean_cost(e2, w_static, valid, cfg: AlignConfig):
+    """Static-weighted Cauchy cost per valid point; inf with no valid point."""
+    c2 = cfg.robust_c**2
+    rho = c2 * torch.log1p(e2 / c2)
+    n = valid.sum()
+    return torch.where(n > 0, (w_static * rho).sum() / n.clamp_min(1), torch.inf)
+
+
+def _evaluate(T: Pose, data: LevelData, camera: Camera, cfg: AlignConfig, compute_jac: bool):
+    """Cost and valid count, plus (g, H) of the normal equations with the
+    channel axis contracted first (G = grad^T grad is 2x2 per point)."""
+    p_cam = T.transform(data.p3d)
+    p2d_img, visible = camera.project(p_cam)
+    p2d = p2d_img * data.scale
+    f_q, grad, in_map = interpolate_features(data.fmap, p2d, compute_grad=compute_jac)
+    r = f_q - data.f_ref
+    valid = data.mask & visible & in_map
+    e2 = (r * r).sum(-1)
+    cq = None
+    if cfg.use_confidence and data.conf is not None:
+        cq, _ = interpolate_scalar(data.conf, p2d)
+    w_static, w = _point_weights(e2, cq, valid, data, cfg)
+    cost = _mean_cost(e2, w_static, valid, cfg)
+    if not compute_jac:
+        return cost, valid.sum()
+    J_pix = _pixel_pose_jacobian(p_cam, camera, data.scale)
+    G = torch.einsum("nca,ncb->nab", grad, grad)
+    gr = torch.einsum("nca,nc->na", grad, r)
+    M = torch.einsum("nab,nbk->nak", G * w[:, None, None], J_pix)
+    H = torch.einsum("nak,nal->kl", J_pix, M)
+    g = torch.einsum("nak,na->k", J_pix, gr * w[:, None])
+    return cost, g, H, valid.sum()
+
+
+def residual_cost(T: Pose, data: LevelData, camera: Camera, cfg: AlignConfig):
+    """(cost, num_valid) at pose T: the accept/reject scalar and the
+    tracker's adaptive threshold."""
+    return _evaluate(T, data, camera, cfg, compute_jac=False)
+
+
+def _solve(H, g, lam, cfg: AlignConfig):
+    """Damped 6x6 solve by Cholesky; a failed factorisation or a non-finite
+    entry gives a zero step (JAX's solve returns NaN there)."""
+    H_damped = H + torch.diag(lam * torch.diagonal(H) + cfg.eps)
+    L, info = torch.linalg.cholesky_ex(H_damped)
+    delta = -torch.cholesky_solve(g[:, None], L)[:, 0]
+    return torch.where((info == 0) & torch.isfinite(delta), delta, 0.0)
+
+
+def align_level(T_init: Pose, data: LevelData, camera: Camera, cfg: AlignConfig) -> AlignState:
+    """Deferred-accept LM on one pyramid level.
+
+    Each iteration evaluates the current candidate once and accepts it
+    against the best cost so far; a rejection re-solves from the best pose's
+    (H, g) with more damping. Stops on a small gradient, a small accepted
+    step, cost stagnation or the iteration budget."""
+    dev = data.p3d.device
+    lam = torch.tensor(cfg.lambda_init, dtype=torch.float32, device=dev)
+    c_best, g_best, H_best, nvalid0 = _evaluate(T_init, data, camera, cfg, True)
+    nv_floor = cfg.min_valid_frac * nvalid0.float()
+    T_best = T_init
+    T_cand = T_init.retract(_solve(H_best, g_best, lam, cfg))
+    i = torch.tensor(1, device=dev)
+    done = torch.tensor(False, device=dev)
+    gnorm = torch.linalg.norm(g_best)
+    stall = torch.tensor(0, device=dev)
+
+    for it in range(max(cfg.num_iters - 1, 0)):
+        if it % _CHECK_EVERY == 0 and not bool((i < cfg.num_iters) & ~done):
+            break
+        active = (i < cfg.num_iters) & ~done
+        c_cand, g_cand, H_cand, nv_cand = _evaluate(T_cand, data, camera, cfg, True)
+        accept = (c_cand < c_best) & (nv_cand >= nv_floor)
+        improved = c_cand < c_best * (1.0 - cfg.cost_rel_tol)
+        T_b = T_cand.where(accept, T_best)
+        c_b = torch.where(accept, c_cand, c_best)
+        g_b = torch.where(accept, g_cand, g_best)
+        H_b = torch.where(accept, H_cand, H_best)
+        lam_next = torch.where(accept, lam * cfg.lambda_down, lam * cfg.lambda_up).clamp(
+            cfg.lambda_min, cfg.lambda_max
+        )
+        delta = _solve(H_b, g_b, lam_next, cfg)
+        T_next = T_b.retract(delta)
+        gnorm_next = torch.linalg.norm(g_b)
+        dR, dt = Pose.exp(delta).magnitude()
+        small_grad = gnorm_next < cfg.grad_stop_criteria
+        small_step = accept & (dt < cfg.dt_stop_criteria) & (dR < cfg.dR_stop_criteria)
+        stall_next = torch.where(improved, 0, stall + 1)
+        stagnated = (stall_next >= cfg.stagnation_iters) & (cfg.stagnation_iters > 0)
+        done_next = done | small_grad | small_step | stagnated
+
+        T_best = T_b.where(active, T_best)
+        c_best = torch.where(active, c_b, c_best)
+        g_best = torch.where(active, g_b, g_best)
+        H_best = torch.where(active, H_b, H_best)
+        T_cand = T_next.where(active, T_cand)
+        lam = torch.where(active, lam_next, lam)
+        gnorm = torch.where(active, gnorm_next, gnorm)
+        stall = torch.where(active, stall_next, stall)
+        done = torch.where(active, done_next, done)
+        i = i + active.long()
+
+    return AlignState(
+        T=T_best, cost=c_best, num_valid=nvalid0, num_iters=i, converged=done, grad_norm=gnorm,
+    )
+
+
+def align_pyramid(
+    T_init: Pose, levels: Tuple[LevelData, ...], camera: Camera, cfg: AlignConfig
+) -> Tuple[AlignState, Tuple[AlignState, ...]]:
+    """Coarse-to-fine over ``levels`` (given fine -> coarse). With level
+    arbitration each finer level starts from whichever of the coarser
+    result and the frame's init has the lower cost under its own residual."""
+    states = []
+    T = T_init
+    for li, data in enumerate(reversed(levels)):
+        if cfg.level_arbitration and li > 0:
+            c_carry, _ = residual_cost(T, data, camera, cfg)
+            c_init, _ = residual_cost(T_init, data, camera, cfg)
+            T = T_init.where(c_init < c_carry, T)
+        st = align_level(T, data, camera, cfg)
+        T = st.T
+        states.append(st)
+    return states[-1], tuple(states)

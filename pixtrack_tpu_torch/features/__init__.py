@@ -1,0 +1,41 @@
+"""Feature extraction: the UNet feature pyramid for feature-metric alignment."""
+
+import os
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+from pixtrack_tpu_torch.features.extractor import FeatureExtractor
+from pixtrack_tpu_torch.features.pyramid import FeaturePyramid
+from pixtrack_tpu_torch.features.unet import UNetExtractor, load_unet_weights
+
+
+def default_unet_weights_path() -> Path:
+    """The shipped basin-trained UNet (assets/unet_basin.npz), overridable
+    through PIXTRACK_UNET_WEIGHTS."""
+    env = os.environ.get("PIXTRACK_UNET_WEIGHTS")
+    if env:
+        return Path(env)
+    return Path(__file__).resolve().parents[2] / "assets" / "unet_basin.npz"
+
+
+def default_extractor(
+    resize: Optional[int] = 1024, device=None, dtype: torch.dtype = torch.bfloat16
+) -> FeatureExtractor:
+    """The production extractor: the shipped UNet. The handcrafted fallback
+    of the JAX package is not ported, so a missing checkpoint raises."""
+    path = default_unet_weights_path()
+    if not path.exists():
+        raise FileNotFoundError(f"UNet checkpoint not found: {path}")
+    return FeatureExtractor(load_unet_weights(path, device=device, dtype=dtype), resize=resize)
+
+
+__all__ = [
+    "FeaturePyramid",
+    "UNetExtractor",
+    "FeatureExtractor",
+    "default_extractor",
+    "default_unet_weights_path",
+    "load_unet_weights",
+]

@@ -1,0 +1,87 @@
+"""Feature extractor with the reference's resize policy.
+
+Port of ``pixtrack_tpu/features/extractor.py``: resize so the max edge is at
+most ``resize // image_scale`` (rounded to multiples of 16), run the UNet,
+L2-normalise, and return per-level (sx, sy) scales from original image
+pixels. The downsample is ``F.interpolate(bilinear, antialias=True)``, which
+matches ``jax.image.resize(method="linear")`` (it antialiases too).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from pixtrack_tpu_torch.features.pyramid import FeaturePyramid
+from pixtrack_tpu_torch.features.unet import normalize_features
+
+
+def _round16(x: float) -> int:
+    return max(16, int(round(x / 16)) * 16)
+
+
+class FeatureExtractor:
+    """A pyramid model behind one call. ``model`` is a ``UNetExtractor``."""
+
+    def __init__(self, model, resize: Optional[int] = 1024, resize_by: str = "max",
+                 normalize: bool = True):
+        assert resize_by in ("max", "max_force")
+        self.model = model
+        self.resize = resize
+        self.resize_by = resize_by
+        self.normalize = normalize
+
+    @property
+    def scales(self):
+        return self.model.scales
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.model.parameters()).device
+
+    def _target_hw(self, H: int, W: int, image_scale: int):
+        if self.resize is None:
+            return H, W, 1.0
+        target = self.resize // image_scale
+        m = max(H, W)
+        if m > target or self.resize_by == "max_force":
+            r = target / m
+            return _round16(H * r), _round16(W * r), r
+        return H, W, 1.0
+
+    def _run(self, img: torch.Tensor, out_h: int, out_w: int):
+        img = img.float()
+        if img.ndim == 2:
+            img = img[..., None].expand(*img.shape, 3)
+        if tuple(img.shape[:2]) != (out_h, out_w):
+            img = F.interpolate(
+                img.permute(2, 0, 1)[None], size=(out_h, out_w), mode="bilinear",
+                antialias=True, align_corners=False,
+            )[0].permute(1, 2, 0)
+        with torch.no_grad():
+            pred = self.model(img[None])
+        feats = tuple(f[0] for f in pred["feature_maps"])
+        confs = tuple(c[0] for c in pred["confidences"])
+        if self.normalize:
+            feats = tuple(normalize_features(f) for f in feats)
+        return feats, confs
+
+    def traced(self, image: torch.Tensor, image_scale: int = 1) -> FeaturePyramid:
+        """Pyramid of a float (H, W, 3) image in [0, 1] already on the device."""
+        H, W = int(image.shape[0]), int(image.shape[1])
+        out_h, out_w, _ = self._target_hw(H, W, image_scale)
+        feats, confs = self._run(image, out_h, out_w)
+        ry, rx = out_h / H, out_w / W
+        scales = tuple((rx / s, ry / s) for s in self.scales)
+        return FeaturePyramid(levels=feats, scales=scales, confidences=confs)
+
+    def __call__(self, image, image_scale: int = 1) -> FeaturePyramid:
+        """image: (H, W, 3) or (H, W), uint8 [0, 255] or float [0, 1]."""
+        if not isinstance(image, torch.Tensor):
+            image = torch.as_tensor(np.asarray(image))
+        if image.dtype == torch.uint8:
+            image = image.float() / 255.0
+        return self.traced(image.to(self.device), image_scale)

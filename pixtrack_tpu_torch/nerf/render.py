@@ -1,0 +1,197 @@
+"""Volume rendering of the distilled field.
+
+Port of the deterministic, coarse-only part of ``pixtrack_tpu/nerf/render.py``.
+Spaces: the field lives in grid space [0, 1]^3; rays are built from NeRF-space
+OpenGL cameras; ``t`` and depth stay in NeRF units.
+
+``render_rays`` always goes through K1 (``fused_march_render``): the CUDA
+kernel on a CUDA tensor, its plain version on a CPU tensor. Renders with an
+importance pass (``n_fine > 0``) or jittered samples need the per-sample
+field kernel K2, which is not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from pixtrack_tpu_torch._shared import nerf_transform
+from pixtrack_tpu_torch.nerf.distill import DistilledField
+from pixtrack_tpu_torch.nerf.fused_mlp import fused_march_render
+
+_NGP_PERM = [int(i) for i in nerf_transform._NGP_PERM]
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderConfig:
+    n_coarse: int = 64
+    n_fine: int = 0
+    min_transmittance: float = 1e-7
+    perturb: bool = False
+    density_scale: float = 1.0
+
+
+def rays_from_camera(
+    c2w_nerf: torch.Tensor, fx: float, fy: float, cx: float, cy: float,
+    width: int, height: int, x0=0.0, y0=0.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-pixel rays (H*W, 3) in NeRF space from an OpenGL c2w matrix.
+
+    Intrinsics are index-centred; ``(x0, y0)`` (floats or scalar tensors)
+    offset the pixel grid to the window ``[x0, x0+width) x [y0, y0+height)``.
+    """
+    dev = c2w_nerf.device
+    ys = torch.arange(height, dtype=torch.float32, device=dev) + y0
+    xs = torch.arange(width, dtype=torch.float32, device=dev) + x0
+    ys, xs = torch.meshgrid(ys, xs, indexing="ij")
+    d_cam = torch.stack([(xs - cx) / fx, -(ys - cy) / fy, -torch.ones_like(xs)], -1).reshape(-1, 3)
+    dirs = d_cam @ c2w_nerf[:3, :3].T
+    dirs = dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True)
+    return c2w_nerf[:3, 3].expand(dirs.shape), dirs
+
+
+def _to_grid(origins_nerf, dirs_nerf):
+    """NeRF-space rays -> grid-space rays; t stays in NeRF units."""
+    return origins_nerf[..., _NGP_PERM] / 3.0 + 0.5, dirs_nerf[..., _NGP_PERM] / 3.0
+
+
+def ray_aabb_intersect(o, d, aabb_min, aabb_max, eps: float = 1e-9):
+    """Slab test. Returns (t_near, t_far, hit)."""
+    d_safe = torch.where(d.abs() < eps, torch.where(d >= 0, eps, -eps), d)
+    inv = 1.0 / d_safe
+    t0 = (aabb_min - o) * inv
+    t1 = (aabb_max - o) * inv
+    t_near = torch.minimum(t0, t1).amax(-1).clamp_min(0.0)
+    t_far = torch.maximum(t0, t1).amin(-1)
+    return t_near, t_far, t_far > t_near
+
+
+def ray_sphere_intersect(o, d, sphere, eps: float = 1e-9):
+    """Ray against the ball sphere = (cx, cy, cz, r). Returns (t0, t1, hit)."""
+    oc = o - sphere[:3]
+    a = (d * d).sum(-1).clamp_min(eps)
+    b = 2.0 * (oc * d).sum(-1)
+    c = (oc * oc).sum(-1) - sphere[3] * sphere[3]
+    disc = b * b - 4.0 * a * c
+    sq = torch.sqrt(disc.clamp_min(0.0))
+    t0 = ((-b - sq) / (2.0 * a)).clamp_min(0.0)
+    t1 = (-b + sq) / (2.0 * a)
+    return t0, t1, (disc > 0.0) & (t1 > t0)
+
+
+def _sample_stratified(t_near, t_far, n: int):
+    """(R,) bounds -> (R, n) midpoint samples (the deterministic strata).
+
+    Computed as ``t_near + (i + 0.5) * dt`` with ``dt = (t_far - t_near) / n``,
+    the TPU kernel's and K1's own rounding (the JAX staged path's linspace
+    form differs in the last bit), so that the plain version of K1 samples
+    exactly where the kernel does. ``n`` divides as a tensor: on CUDA,
+    PyTorch divides by a Python number by multiplying with its reciprocal,
+    which rounds ``dt`` differently from the kernel's division."""
+    dt = (t_far - t_near).clamp_min(0.0) / torch.full_like(t_near, float(n))
+    i = torch.arange(n, dtype=torch.float32, device=t_near.device) + 0.5
+    return t_near[:, None] + i[None, :] * dt[:, None]
+
+
+def _composite(sigma, rgbT, ts, t_far, hit, min_transmittance, density_scale):
+    """Front-to-back compositing. sigma (R, S), rgbT (3, R, S), ts (R, S).
+    Returns (rgb (R, 3), alpha (R,), depth (R,)), background not applied."""
+    deltas = torch.diff(ts, dim=-1)
+    last = (t_far[:, None] - ts[:, -1:]).clamp_min(0.0)
+    deltas = torch.cat([deltas, last], dim=-1)
+    alpha_i = 1.0 - torch.exp(-sigma * density_scale * deltas)
+    trans = torch.cumprod(1.0 - alpha_i + 1e-10, dim=-1)
+    trans = torch.cat([torch.ones_like(trans[:, :1]), trans[:, :-1]], dim=-1)
+    w = alpha_i * trans
+    w = torch.where(trans > min_transmittance, w, 0.0)
+    w = torch.where(hit[:, None], w, 0.0)
+    acc = w.sum(-1)
+    rgb = torch.einsum("rs,crs->rc", w, rgbT)
+    depth = (w * ts).sum(-1) / acc.clamp_min(1e-8)
+    return rgb, acc, torch.where(acc > 1e-4, depth, 0.0)
+
+
+def occupied_bounds(
+    field: DistilledField, aabb, res: int = 96, sigma_threshold: float = 0.01,
+    margin_cells: float = 1.5, chunk: int = 1 << 18,
+):
+    """Grid-space bounds of the field's occupied region inside ``aabb``:
+    (aabb_tight (2, 3), sphere (4,)) as numpy (a one-time res^3 sweep)."""
+    aabb = np.asarray(aabb, np.float32)
+    centers = (np.arange(res, dtype=np.float32) + 0.5) / res
+    zz, yy, xx = np.meshgrid(centers, centers, centers, indexing="ij")
+    pts01 = np.stack([xx.ravel(), yy.ravel(), zz.ravel()], axis=0)
+    pts = aabb[0][:, None] + pts01 * (aabb[1] - aabb[0])[:, None]
+    sig = np.empty(pts.shape[1], np.float32)
+    with torch.no_grad():
+        for s in range(0, pts.shape[1], chunk):
+            blk = torch.as_tensor(pts[:, s : s + chunk], device=field.device)
+            sig[s : s + chunk] = field.density_T(blk)[0].cpu().numpy()
+    occ = sig > sigma_threshold
+    if not occ.any():
+        ctr = 0.5 * (aabb[0] + aabb[1])
+        rad = 0.5 * float(np.linalg.norm(aabb[1] - aabb[0]))
+        return aabb, np.asarray([*ctr, rad], np.float32)
+    pocc = pts[:, occ]
+    cell = (aabb[1] - aabb[0]) / res
+    margin = margin_cells * cell
+    lo = np.maximum(pocc.min(axis=1) - margin, aabb[0])
+    hi = np.minimum(pocc.max(axis=1) + margin, aabb[1])
+    ctr = 0.5 * (lo + hi)
+    rad = float(np.sqrt(((pocc - ctr[:, None]) ** 2).sum(axis=0).max()))
+    rad += margin_cells * float(np.linalg.norm(cell))
+    return np.stack([lo, hi]).astype(np.float32), np.asarray([*ctr, rad], np.float32)
+
+
+def march_rays(origins_nerf, dirs_nerf, aabb, sphere: Optional[torch.Tensor] = None):
+    """NeRF-space rays -> K1's inputs: grid-space (o, d) and (t_near, t_far)
+    clipped to the crop box and the occupied ball, a miss encoded as
+    t_far == t_near."""
+    o_g, d_g = _to_grid(origins_nerf, dirs_nerf)
+    t_near, t_far, hit = ray_aabb_intersect(o_g, d_g, aabb[0], aabb[1])
+    if sphere is not None:
+        s0, s1, s_hit = ray_sphere_intersect(o_g, d_g, sphere)
+        t_near = torch.maximum(t_near, s0)
+        t_far = torch.minimum(t_far, s1)
+        hit = hit & s_hit & (t_far > t_near)
+    t_far = torch.maximum(t_far, t_near + 1e-4)
+    return o_g, d_g, t_near, torch.where(hit, t_far, t_near)
+
+
+def render_rays(
+    field: DistilledField, origins_nerf, dirs_nerf, aabb, cfg: RenderConfig,
+    sphere: Optional[torch.Tensor] = None,
+):
+    """Render NeRF-space rays through K1. Returns dict(rgb, alpha, depth)."""
+    if not isinstance(field, DistilledField):
+        raise NotImplementedError("only the distilled field renders in the port so far")
+    if cfg.n_fine > 0 or cfg.perturb:
+        raise NotImplementedError(
+            "importance-sampled or jittered renders need the per-sample field "
+            "kernel K2 (ROADMAP Queue 2), which is not ported yet"
+        )
+    return fused_march_render(
+        field, *march_rays(origins_nerf, dirs_nerf, aabb, sphere),
+        cfg.n_coarse, cfg.min_transmittance, cfg.density_scale,
+    )
+
+
+def render_image(
+    field: DistilledField, c2w_nerf, fx, fy, cx, cy, width: int, height: int,
+    aabb, cfg: RenderConfig, background=(1.0, 1.0, 1.0),
+    sphere: Optional[torch.Tensor] = None,
+):
+    """Full-image render: dict(rgba (H, W, 4), depth (H, W))."""
+    origins, dirs = rays_from_camera(c2w_nerf, fx, fy, cx, cy, width, height)
+    out = render_rays(field, origins, dirs, aabb, cfg, sphere=sphere)
+    rgb = out["rgb"].reshape(height, width, 3)
+    alpha = out["alpha"].reshape(height, width)
+    bg = torch.as_tensor(background, dtype=torch.float32, device=rgb.device)
+    rgb = rgb + (1.0 - alpha[..., None]) * bg
+    return {
+        "rgba": torch.cat([rgb, alpha[..., None]], dim=-1),
+        "depth": out["depth"].reshape(height, width),
+    }

@@ -1,0 +1,5 @@
+"""SfM layer: the scene container over the shared COLMAP reader."""
+
+from pixtrack_tpu_torch.sfm.scene import SceneModel
+
+__all__ = ["SceneModel"]

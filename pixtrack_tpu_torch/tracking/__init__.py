@@ -1,0 +1,15 @@
+"""Tracking: the refiner, the PixTrack tracker and its fused steady-state frame."""
+
+from pixtrack_tpu_torch.tracking.fused import FusedSteadyStep, run_fused
+from pixtrack_tpu_torch.tracking.refiner import Refiner, RefineResult, infer_camera_from_image
+from pixtrack_tpu_torch.tracking.tracker import PixTrackTracker, TrackerConfig
+
+__all__ = [
+    "FusedSteadyStep",
+    "run_fused",
+    "Refiner",
+    "RefineResult",
+    "infer_camera_from_image",
+    "PixTrackTracker",
+    "TrackerConfig",
+]

@@ -1,0 +1,52 @@
+"""Binary mask morphology and the point-splat object mask on device.
+
+Port of ``erode``, ``dilate`` and ``splat_object_mask`` from
+``pixtrack_tpu/tracking/mask.py``. Like ``reduce_window`` with SAME
+padding, erosion pads with 1 and dilation with 0.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def _pool(mask: torch.Tensor, size: int, pad_value: float, sign: float) -> torch.Tensor:
+    lo = (size - 1) // 2
+    x = F.pad(mask[None, None], (lo, size - 1 - lo, lo, size - 1 - lo), value=pad_value)
+    return sign * F.max_pool2d(sign * x, size, stride=1)[0, 0]
+
+
+def erode(mask: torch.Tensor, size: int = 5, iterations: int = 1) -> torch.Tensor:
+    for _ in range(iterations):
+        mask = _pool(mask, size, 1.0, -1.0)
+    return mask
+
+
+def dilate(mask: torch.Tensor, size: int = 5, iterations: int = 1) -> torch.Tensor:
+    for _ in range(iterations):
+        mask = _pool(mask, size, 0.0, 1.0)
+    return mask
+
+
+def splat_object_mask(
+    T_w2c, camera, p3d: torch.Tensor, shape, close_size: int = 7,
+    dilate_iters: int = 2, down: int = 4,
+) -> torch.Tensor:
+    """Object mask from the SfM cloud: project the points, scatter-max them
+    into a ``down``-scaled buffer, close (dilate then erode), dilate, and
+    upsample by repetition. Returns float32 {0, 1} of ``shape``."""
+    H, W = shape
+    h, w = H // down, W // down
+    p2d, visible = camera.world2image(T_w2c, p3d)
+    ij = torch.round(p2d / down).to(torch.int64)
+    inb = visible & (ij[:, 0] >= 0) & (ij[:, 0] < w) & (ij[:, 1] >= 0) & (ij[:, 1] < h)
+    ij = torch.where(inb[:, None], ij, 0)
+    flat = torch.zeros(h * w, dtype=torch.float32, device=p3d.device)
+    flat = flat.scatter_reduce(0, ij[:, 1] * w + ij[:, 0], inb.float(), reduce="amax")
+    m = flat.reshape(h, w)
+    m = dilate(m, close_size, 1)
+    m = erode(m, close_size, 1)
+    m = dilate(m, close_size, dilate_iters)
+    m = m.repeat_interleave(down, dim=0).repeat_interleave(down, dim=1)
+    return m[:H, :W]

@@ -1,0 +1,130 @@
+"""The port's host-side IO against the JAX package and the test helpers:
+the SfM scene, the PNG reader, OBJ loading, the mesh rasteriser, surface
+sampling and the blob world's geometry (exact, or 1e-6 where both sides
+compute in f32) — and a check that the port never imports JAX.
+"""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from pixtrack_tpu_torch.geometry import Camera, Pose
+
+torch.set_num_threads(2)
+REPO = Path(__file__).resolve().parents[1]
+MW = REPO / "assets" / "mesh_world"
+
+
+def test_scene_load_matches_jax():
+    from pixtrack_tpu.sfm.scene import SceneModel as JScene
+    from pixtrack_tpu_torch.sfm.scene import SceneModel
+
+    js, ts = JScene.load(MW / "aug_sfm"), SceneModel.load(MW / "aug_sfm")
+    np.testing.assert_array_equal(js.image_ids, ts.image_ids)
+    np.testing.assert_array_equal(js.qvecs, ts.qvecs)
+    np.testing.assert_array_equal(js.xyz, ts.xyz)
+    assert js.names == ts.names
+    ids = [int(i) for i in js.image_ids[[0, 7, 100]]]
+    for i in ids:
+        np.testing.assert_allclose(np.asarray(js.pose_w2c(i).R), ts.pose_w2c(i).R.numpy(), atol=1e-6)
+        np.testing.assert_allclose(np.asarray(js.pose_w2c(i).t), ts.pose_w2c(i).t.numpy(), atol=1e-6)
+    jc, tc = js.camera(1), ts.camera(1)
+    for name in ("size", "f", "c", "k"):
+        np.testing.assert_array_equal(np.asarray(getattr(jc, name)), getattr(tc, name).numpy())
+    idx = js.p3d_indices_for_images(ids)
+    np.testing.assert_array_equal(idx, ts.p3d_indices_for_images(ids))
+    for a, b in zip(js.pack_points(idx, pad_multiple=1024), ts.pack_points(idx, pad_multiple=1024)):
+        np.testing.assert_array_equal(a, b)
+    assert js.covisibility_dict() == ts.covisibility_dict()
+
+
+def test_png_reader_matches_cv2():
+    import cv2
+
+    from pixtrack_tpu_torch.mapping.mesh_render import read_png
+
+    path = MW / "src" / "house_tex.png"
+    ref = cv2.cvtColor(cv2.imread(str(path), cv2.IMREAD_COLOR), cv2.COLOR_BGR2RGB)
+    np.testing.assert_array_equal(read_png(path), ref)
+
+
+def test_png_reader_all_filters(tmp_path):
+    """Rows written with every PNG filter type decode exactly (cv2 writes them)."""
+    import cv2
+
+    from pixtrack_tpu_torch.mapping.mesh_render import read_png
+
+    img = (np.random.default_rng(0).uniform(0, 255, (23, 17, 3))).astype(np.uint8)
+    img[:, :5] = 40  # flat runs and gradients exercise the predictors
+    img[5:9] = np.arange(17, dtype=np.uint8)[None, :, None] * 9
+    path = tmp_path / "t.png"
+    cv2.imwrite(str(path), img[..., ::-1], [cv2.IMWRITE_PNG_STRATEGY, cv2.IMWRITE_PNG_STRATEGY_FILTERED])
+    np.testing.assert_array_equal(read_png(path), img)
+
+
+def test_obj_render_and_sampling_match_jax():
+    from pixtrack_tpu.geometry import Camera as JCamera
+    from pixtrack_tpu.geometry import Pose as JPose
+    from pixtrack_tpu.mapping.mesh_render import load_obj as jload_obj
+    from pixtrack_tpu.mapping.mesh_render import render_mesh as jrender_mesh
+    from pixtrack_tpu_torch.mapping.mesh_render import load_obj, render_mesh, sample_mesh_surface
+
+    sys.path.insert(0, str(REPO / "tests"))
+    from mesh_world import sample_mesh_surface as jsample
+    from synthetic_world import look_at_w2c as jlook_at
+
+    jm, tm = jload_obj(MW / "src" / "house.obj"), load_obj(MW / "src" / "house.obj")
+    for key in ("vertices", "uvs", "faces", "faces_uv", "texture"):
+        np.testing.assert_array_equal(jm[key], tm[key])
+    np.testing.assert_array_equal(jsample(jm, 512, seed=3), sample_mesh_surface(tm, 512, seed=3))
+
+    center = jm["vertices"].mean(axis=0)
+    eye = center + np.array([0.25, 0.2, 0.6])
+    Tj = jlook_at(eye, target=center)
+    Tt = Pose.from_Rt(np.asarray(Tj.R), np.asarray(Tj.t))
+    cam = (150.0, 150.0, 79.5, 59.5, 160, 120)
+    ij, dj = jrender_mesh(jm, Tj, JCamera.pinhole(*cam), background=(0.0, 0.0, 0.0), return_depth=True)
+    it, dt = render_mesh(tm, Tt, Camera.pinhole(*cam), background=(0.0, 0.0, 0.0), return_depth=True)
+    assert (dt > 0).mean() > 0.1  # the house is in view
+    np.testing.assert_array_equal(ij, it)
+    np.testing.assert_allclose(dj, dt, atol=1e-6)
+
+
+def test_blob_world_geometry_matches_test_helpers():
+    sys.path.insert(0, str(REPO / "tests"))
+    from synthetic_world import look_at_w2c as jlook_at
+    from synthetic_world import sphere_surface_points as jsphere
+
+    from smoke_worlds import look_at_w2c, sphere_surface_points
+
+    np.testing.assert_array_equal(jsphere(n=4200, seed=0), sphere_surface_points(n=4200))
+    c = np.array([0.3, 0.5, 1.5])
+    Tj, Tt = jlook_at(c), look_at_w2c(c)
+    np.testing.assert_array_equal(np.asarray(Tj.R), Tt.R.numpy())
+    np.testing.assert_array_equal(np.asarray(Tj.t), Tt.t.numpy())
+
+
+def test_port_imports_no_jax():
+    """Every module of the port imports without JAX, flax or tqdm code of its own."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import pixtrack_tpu_torch as p\n"
+        "mods = [m.name for m in pkgutil.walk_packages(p.__path__, 'pixtrack_tpu_torch.')]\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'pixtrack_tpu')]\n"
+        "assert not bad, bad\n"
+        "print(len(mods))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 25
+    # torch itself may load tqdm; no module of the port imports it
+    for src in (REPO / "pixtrack_tpu_torch").rglob("*.py"):
+        for line in src.read_text().splitlines():
+            words = line.split()
+            if words[:1] in (["import"], ["from"]) and len(words) > 1:
+                assert words[1].split(".")[0] not in ("jax", "flax", "tqdm", "pixtrack_tpu"), (src, line)

@@ -1,0 +1,175 @@
+"""Parity of the PyTorch render path (distilled field, K1's plain version,
+render_rays, Testbed) with the JAX package on the CPU. K1's CUDA kernel
+is held against its plain version on the card in tests/test_torch_cuda.py.
+
+Tolerances are the JAX package's own (tests/test_fused_mlp.py): 2e-3 on
+sigma and 5e-3 on rgb, alpha and depth. Both sides round every dense
+layer's operands to bf16 and sum in f32; what differs is the order of the
+f32 sums.
+"""
+
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pixtrack_tpu.nerf.distill import init_distilled, load_distilled as jload_distilled
+from pixtrack_tpu.nerf.fused_mlp import fused_march_render as jfused_march_render
+from pixtrack_tpu.nerf.render import RenderConfig as JRenderConfig
+from pixtrack_tpu.nerf.render import _to_grid as j_to_grid
+from pixtrack_tpu.nerf.render import ray_aabb_intersect as j_ray_aabb
+from pixtrack_tpu.nerf.render import render_rays as jrender_rays
+from pixtrack_tpu.nerf.testbed import Testbed as JTestbed
+from pixtrack_tpu_torch.nerf import fused_mlp
+from pixtrack_tpu_torch.nerf.distill import distilled_from_arrays, load_distilled
+from pixtrack_tpu_torch.nerf.render import RenderConfig, _to_grid, ray_aabb_intersect, render_rays
+from pixtrack_tpu_torch.nerf.testbed import Testbed
+
+torch.set_num_threads(2)
+REPO = Path(__file__).resolve().parents[1]
+SIGMA_TOL, RGB_TOL = 2e-3, 5e-3
+
+
+def _arrays(f):
+    """A JAX DistilledField as the npz dict save_distilled writes."""
+    out = {"meta": np.asarray([f.octaves, f.geo_features, len(f.trunk), len(f.color)])}
+    for name, layers in (("trunk", f.trunk), ("color", f.color)):
+        for i, p in enumerate(layers):
+            out[f"{name}{i}_k"] = np.asarray(p["kernel"])
+            out[f"{name}{i}_b"] = np.asarray(p["bias"])
+    out["head_k"], out["head_b"] = np.asarray(f.head["kernel"]), np.asarray(f.head["bias"])
+    return out
+
+
+def _pair(octaves):
+    jf = init_distilled(jax.random.PRNGKey(3), octaves=octaves)
+    return jf, distilled_from_arrays(_arrays(jf))
+
+
+def _samples(n=1000, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0, 1, (3, n)).astype(np.float32)
+    d = rng.normal(size=(3, n)).astype(np.float32)
+    return x, d / np.linalg.norm(d, axis=0, keepdims=True)
+
+
+def _assert_trained_close(a, b):
+    """Outputs of the trained fields: 5e-3 on 99.9% of the values and 1e-2
+    on all. Their larger weights let a hidden activation that sits on a
+    bf16 rounding boundary round the other way on one side."""
+    err = np.abs(np.asarray(a) - np.asarray(b))
+    assert np.quantile(err, 0.999) <= RGB_TOL and err.max() <= 1e-2, err.max()
+
+
+def _check_field(jf, tf, trained=False):
+    x, d = _samples()
+    s0, c0 = jf.field_T(jnp.asarray(x), jnp.asarray(d))
+    s1, c1 = tf.field_T(torch.as_tensor(x), torch.as_tensor(d))
+    if not trained:
+        np.testing.assert_allclose(np.asarray(s0), s1.numpy(), atol=SIGMA_TOL)
+        np.testing.assert_allclose(np.asarray(c0), c1.numpy(), atol=RGB_TOL)
+        return
+    # sigma reaches ~4e3 there, where f32 sums in another order differ by
+    # ~1e-6 relative: 2e-3 absolute plus 1e-5 relative
+    np.testing.assert_allclose(np.asarray(s0), s1.numpy(), atol=SIGMA_TOL, rtol=1e-5)
+    _assert_trained_close(c0, c1.numpy())
+
+
+@pytest.mark.parametrize("octaves", [8, 10])
+def test_distilled_field_random_weights(octaves):
+    _check_field(*_pair(octaves))
+
+
+@pytest.mark.parametrize("rel", ["assets/bench_field.npz", "assets/mesh_world/field.npz"])
+def test_distilled_field_shipped_weights(rel):
+    tf = load_distilled(REPO / rel)
+    assert tf.octaves == {"assets/bench_field.npz": 8}.get(rel, 10)
+    _check_field(jload_distilled(REPO / rel), tf, trained=True)
+
+
+def _rays(R=96, seed=1):
+    """Rays around the unit cube's centre, the last 8 pointing away (misses)."""
+    rng = np.random.default_rng(seed)
+    o = rng.normal(size=(R, 3)).astype(np.float32)
+    o = o / np.linalg.norm(o, axis=1, keepdims=True) * 1.6
+    d = -o + 0.3 * rng.normal(size=(R, 3)).astype(np.float32)
+    d[-8:] = -d[-8:]
+    return o, (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+
+
+@pytest.mark.parametrize("octaves", [8, 10])
+def test_k1_plain_matches_pallas_and_staged(octaves):
+    """K1's plain version against the Pallas kernel in interpret mode and
+    the JAX staged render, miss rays included."""
+    jf, tf = _pair(octaves)
+    o, d = _rays()
+    aabb = np.asarray([[0.25] * 3, [0.75] * 3], np.float32)
+    S = 6
+    cfg = JRenderConfig(n_coarse=S, n_fine=0, perturb=False, fused=False)
+    staged = jrender_rays(jf, None, jnp.asarray(o), jnp.asarray(d), jnp.asarray(aabb), cfg)
+    o_g, d_g = j_to_grid(jnp.asarray(o), jnp.asarray(d))
+    tn, tfar, hit = j_ray_aabb(o_g, d_g, aabb[0], aabb[1])
+    tfar = jnp.where(hit, jnp.maximum(tfar, tn + 1e-4), tn)
+    pallas = jfused_march_render(jf, o_g, d_g, tn, tfar, S, cfg.min_transmittance, interpret=True)
+    assert int(np.asarray(hit).sum()) < len(o)
+
+    to_g, td_g = _to_grid(torch.as_tensor(o), torch.as_tensor(d))
+    ttn, ttf, thit = ray_aabb_intersect(to_g, td_g, torch.as_tensor(aabb[0]), torch.as_tensor(aabb[1]))
+    ttf = torch.where(thit, torch.maximum(ttf, ttn + 1e-4), ttn)
+    plain = fused_mlp.march_render_reference(tf, to_g, td_g, ttn, ttf, S, cfg.min_transmittance)
+    before = fused_mlp.launch_count()
+    port = render_rays(tf, torch.as_tensor(o), torch.as_tensor(d), torch.as_tensor(aabb),
+                       RenderConfig(n_coarse=S, n_fine=0))
+    assert fused_mlp.launch_count() == before  # CPU tensors never reach the kernel
+    for k in ("rgb", "alpha", "depth"):
+        for ref in (pallas, staged):
+            np.testing.assert_allclose(np.asarray(ref[k]), plain[k].numpy(), atol=RGB_TOL, err_msg=k)
+            np.testing.assert_allclose(np.asarray(ref[k]), port[k].numpy(), atol=RGB_TOL, err_msg=k)
+
+
+def test_render_rays_refuses_what_needs_k2():
+    _, tf = _pair(8)
+    o, d = (torch.as_tensor(a) for a in _rays(8))
+    aabb = torch.tensor([[0.25] * 3, [0.75] * 3])
+    for cfg in (RenderConfig(n_coarse=4, n_fine=4), RenderConfig(n_coarse=4, perturb=True)):
+        with pytest.raises(NotImplementedError, match="K2"):
+            render_rays(tf, o, d, aabb, cfg)
+
+
+def test_testbed_render_and_bounds_match_jax():
+    """Mesh-world field: occupied-bounds tightening and a Shade + Depth
+    render at a small size through both Testbeds."""
+    import json
+
+    meta = json.loads((REPO / "assets/mesh_world/meta.json").read_text())
+    jtb, ttb = JTestbed(), Testbed()
+    jtb.set_baked_field(jload_distilled(REPO / "assets/mesh_world/field.npz"))
+    ttb.set_baked_field(load_distilled(REPO / "assets/mesh_world/field.npz"))
+    c2w = np.eye(4)
+    c2w[:3, 3] = [0.0, 0.2, 1.9]
+    for tb in (jtb, ttb):
+        tb.render_aabb.min = [float(v) for v in meta["aabb"][0]]
+        tb.render_aabb.max = [float(v) for v in meta["aabb"][1]]
+        tb.n_coarse, tb.n_fine = 24, 0
+        tb.tighten_render_bounds(res=24)
+        tb.override_intrinsics = (30.0, 30.0, 15.5, 11.5)
+        tb.set_nerf_camera_matrix(c2w[:3])
+    # one grid cell of slack: bf16 sums may flip a borderline cell
+    cell = (np.asarray(meta["aabb"][1]) - np.asarray(meta["aabb"][0])) / 24
+    np.testing.assert_allclose(jtb.render_aabb.min, ttb.render_aabb.min, atol=cell.max() + 1e-6)
+    np.testing.assert_allclose(jtb.render_aabb.max, ttb.render_aabb.max, atol=cell.max() + 1e-6)
+    # render through the same bounds so the images are comparable
+    ttb.render_aabb.min, ttb.render_aabb.max = list(jtb.render_aabb.min), list(jtb.render_aabb.max)
+    ttb._sphere = np.asarray(jtb._sphere)
+    rgba_j = jtb.render(32, 24, spp=1)
+    rgba_t = ttb.render(32, 24, spp=1)
+    assert rgba_j[..., 3].max() > 0.2  # the object is in view
+    _assert_trained_close(rgba_j, rgba_t)
+    from pixtrack_tpu.nerf.testbed import RenderMode as JMode
+    from pixtrack_tpu_torch.nerf.testbed import RenderMode
+
+    jtb.render_mode, ttb.render_mode = JMode.Depth, RenderMode.Depth
+    _assert_trained_close(jtb.render(32, 24, spp=1), ttb.render(32, 24, spp=1))
