@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` is compiled by nvcc for Hopper (``sm_90a``) into a
 shared library with a plain C interface, under ``build/kernels/<hash>/`` at
-the repository root; the hash covers the source and the flags, so an edited
-kernel rebuilds and an unchanged one loads from the cache.
+the repository root; the hash covers the source, the headers it may include
+(every ``csrc/*.cuh``) and the flags, so an edited kernel or header rebuilds
+and an unchanged one loads from the cache.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import Sequence
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_ROOT = Path(__file__).resolve().parents[1] / "build" / "kernels"
@@ -42,35 +44,51 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    """Compile ``csrc/<name>.cu`` if its build is missing, then load it."""
-    if name in _loaded:
-        return _loaded[name]
-    src = _CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out_dir = _BUILD_ROOT / digest
-    lib_path = out_dir / f"lib{name}.so"
+def _out_dir(name: str) -> Path:
+    h = hashlib.sha256((_CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(_CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return _BUILD_ROOT / h.hexdigest()[:16]
+
+
+def load_libraries(names: Sequence[str]) -> None:
+    """Compile every ``csrc/<name>.cu`` whose build is missing, one nvcc per
+    source, all started together, then load them all."""
+    names = [n for n in names if n not in _loaded]
+    started = {}
     t0 = time.perf_counter()
-    if not lib_path.exists():
+    for name in names:
+        out_dir = _out_dir(name)
+        if (out_dir / f"lib{name}.so").exists():
+            continue
         out_dir.mkdir(parents=True, exist_ok=True)
         tmp = out_dir / f"lib{name}.so.{os.getpid()}.tmp"
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-            capture_output=True, text=True,
-        )
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed to build {src.name}:\n{log}")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{name}.cu")]
+        started[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp)
+    failed = []
+    for name, (proc, tmp) in started.items():
+        log, _ = proc.communicate()
+        out_dir = _out_dir(name)
         (out_dir / f"{name}.log").write_text(log)
-        os.replace(tmp, lib_path)
-        seconds = time.perf_counter() - t0
-    else:
-        seconds = 0.0
-    log_file = out_dir / f"{name}.log"
-    build_info[name] = {
-        "seconds": seconds,
-        "log": log_file.read_text() if log_file.exists() else "",
-    }
-    lib = ctypes.CDLL(str(lib_path))
-    _loaded[name] = lib
-    return lib
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed to build {name}.cu:\n{log}")
+        else:
+            os.replace(tmp, out_dir / f"lib{name}.so")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    seconds = time.perf_counter() - t0
+    for name in names:
+        out_dir = _out_dir(name)
+        log_file = out_dir / f"{name}.log"
+        build_info[name] = {
+            "seconds": seconds if name in started else 0.0,
+            "log": log_file.read_text() if log_file.exists() else "",
+        }
+        _loaded[name] = ctypes.CDLL(str(out_dir / f"lib{name}.so"))
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """Compile ``csrc/<name>.cu`` if its build is missing, then load it."""
+    load_libraries([name])
+    return _loaded[name]

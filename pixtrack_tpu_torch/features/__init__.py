@@ -6,6 +6,7 @@ from typing import Optional
 
 import torch
 
+from pixtrack_tpu_torch._device import resolve
 from pixtrack_tpu_torch.features.extractor import FeatureExtractor
 from pixtrack_tpu_torch.features.pyramid import FeaturePyramid
 from pixtrack_tpu_torch.features.unet import UNetExtractor, load_unet_weights
@@ -24,7 +25,9 @@ def default_extractor(
     resize: Optional[int] = 1024, device=None, dtype: torch.dtype = torch.bfloat16
 ) -> FeatureExtractor:
     """The production extractor: the shipped UNet. The handcrafted fallback
-    of the JAX package is not ported, so a missing checkpoint raises."""
+    of the JAX package is not ported, so a missing checkpoint raises.
+    ``device`` None is the CUDA card."""
+    device = resolve(device)
     path = default_unet_weights_path()
     if not path.exists():
         raise FileNotFoundError(f"UNet checkpoint not found: {path}")

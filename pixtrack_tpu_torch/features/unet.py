@@ -25,6 +25,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from pixtrack_tpu_torch._device import resolve
+
 _FLAX_GN_EPS = 1e-6
 
 
@@ -186,6 +188,8 @@ def flax_tree_from_npz(path) -> dict:
 
 
 def load_unet_weights(path, device=None, dtype: torch.dtype = torch.bfloat16) -> UNetExtractor:
+    """The UNet of a JAX-package checkpoint, on ``device`` (None is the CUDA card)."""
+    device = resolve(device)
     model = UNetExtractor(dtype=dtype)
     model.load_state_dict(unet_state_dict_from_flax(flax_tree_from_npz(path)))
     return model.to(device=device).eval()

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from pixtrack_tpu_torch._device import resolve
 from pixtrack_tpu_torch.nerf.field import sh_encoding_deg4_T
 
 
@@ -70,7 +71,8 @@ def init_distilled(seed: int = 0, octaves: int = 8, width: int = 128, depth: int
                    color_width: int = 64, geo_features: int = 15, device=None) -> DistilledField:
     """A freshly initialised field, as the JAX package's ``init_distilled``
     draws it (He-normal weights, zero biases, density bias -3), from a numpy
-    generator: the same seed gives other numbers than ``jax.random``."""
+    generator: the same seed gives other numbers than ``jax.random``.
+    ``device`` None is the CUDA card."""
     rng = np.random.default_rng(seed)
     arrays = {"meta": np.asarray([octaves, geo_features, depth, 3])}
 
@@ -93,7 +95,9 @@ def init_distilled(seed: int = 0, octaves: int = 8, width: int = 128, depth: int
 def distilled_from_arrays(arrays, device=None) -> DistilledField:
     """Build a field from the npz layout ``save_distilled`` writes:
     ``trunk{i}_k`` (out, in), ``trunk{i}_b`` (out, 1), ``head_*``,
-    ``color{i}_*`` and ``meta`` = (octaves, geo, n_trunk, n_color)."""
+    ``color{i}_*`` and ``meta`` = (octaves, geo, n_trunk, n_color), on
+    ``device`` (None is the CUDA card)."""
+    device = resolve(device)
     octaves, geo, n_trunk, n_color = (int(v) for v in np.asarray(arrays["meta"]))
 
     def t(key):
@@ -112,5 +116,8 @@ def distilled_from_arrays(arrays, device=None) -> DistilledField:
 
 
 def load_distilled(path, device=None) -> DistilledField:
+    """A field saved by the JAX package's ``save_distilled``, on ``device``
+    (None is the CUDA card)."""
+    device = resolve(device)
     with np.load(path) as z:
         return distilled_from_arrays({k: z[k] for k in z.files}, device=device)

@@ -1,16 +1,19 @@
-"""K1, the whole-ray fused march render, and its plain PyTorch version.
+"""The distilled field's two kernels and their plain PyTorch versions.
 
-``fused_march_render`` replaces the Pallas kernel of the same name in
+K1, ``fused_march_render``, replaces the Pallas kernel of the same name in
 ``pixtrack_tpu/nerf/fused_mlp.py``: stratified sampling, the distilled MLP
-and compositing in one launch, with per-ray device-memory traffic only. On a
-CUDA tensor it launches the hand-written CUDA kernel
-``csrc/march_render.cu`` (built at first use) or raises; on a CPU tensor it
-runs ``march_render_reference``, the same computation in plain PyTorch,
-which the tests and ``chip_smoke.py`` hold the kernel against.
+and compositing in one launch, with per-ray device-memory traffic only (CUDA
+``csrc/march_render.cu``; plain version ``march_render_reference``).
 
-The per-sample field evaluation kernel of the JAX package
-(``fused_distilled_eval``) serves only renders with an importance pass and is
-not ported yet.
+K2, ``fused_distilled_eval``, replaces the Pallas kernel of the same name:
+the distilled MLP at each of N samples, for the staged render's importance
+pass (CUDA ``csrc/distilled_eval.cu``; plain version
+``distilled_eval_reference``, which is ``DistilledField.field_T``).
+
+On a CUDA tensor each wrapper launches its hand-written kernel (built at
+first use) or raises; on a CPU tensor it runs the plain version, which the
+tests and ``chip_smoke.py`` hold the kernel against. Each wrapper counts its
+launches (``launch_count``), the proof that a path went through it.
 """
 
 from __future__ import annotations
@@ -21,46 +24,58 @@ import torch
 
 from pixtrack_tpu_torch import _build
 
-# launches of the CUDA kernel since the last reset (the main-path proof)
-_launches = 0
-_lib = None
+K1, K2 = "fused_march_render", "fused_distilled_eval"
+# kernel launches since the last reset (the main-path proof)
+_launches = {K1: 0, K2: 0}
+# csrc/<source>.cu of each kernel
+_SOURCES = {K1: "march_render", K2: "distilled_eval"}
+_libs = {}
 # largest dynamic shared memory a block may use on an H100
 _MAX_SMEM = 232448
-# rays per slice of the plain version (bounds its per-sample activations)
+# rays per slice of K1's plain version (bounds its per-sample activations)
 _PLAIN_CHUNK = 8192
 
 
-def launch_count() -> int:
-    return _launches
+def launch_count(kernel: str) -> int:
+    return _launches[kernel]
 
 
-def reset_launch_count() -> None:
-    global _launches
-    _launches = 0
+def reset_launch_counts() -> None:
+    for k in _launches:
+        _launches[k] = 0
 
 
-def _library():
-    global _lib
-    if _lib is None:
-        lib = _build.load_library("march_render")
-        lib.k1_march_render.restype = ctypes.c_int
-        lib.k1_march_render.argtypes = [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-            ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
-        ]
-        lib.k1_smem_bytes.restype = ctypes.c_size_t
-        lib.k1_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-        _lib = lib
-    return _lib
+def build_kernels() -> None:
+    """Build (nvcc, one process per source, in parallel) and load both kernels."""
+    _build.load_libraries(list(_SOURCES.values()))
+    for kernel in _SOURCES:
+        _library(kernel)
+
+
+def _library(kernel: str):
+    if kernel not in _libs:
+        lib = _build.load_library(_SOURCES[kernel])
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        if kernel == K1:
+            lib.k1_march_render.restype = i
+            lib.k1_march_render.argtypes = [p, i, p, p, i, i, i, f, f, p, p]
+            lib.k1_smem_bytes.restype = ctypes.c_size_t
+            lib.k1_smem_bytes.argtypes = [i, i]
+        else:
+            lib.k2_distilled_eval.restype = i
+            lib.k2_distilled_eval.argtypes = [p, p, i, p, p, i, i, p, p]
+            lib.k2_smem_bytes.restype = ctypes.c_size_t
+            lib.k2_smem_bytes.argtypes = [i, i]
+        _libs[kernel] = lib
+    return _libs[kernel]
 
 
 def _pack_weights(field, device):
-    """The field's weights in the kernel's layout: one bf16 buffer
+    """The field's weights in the kernels' layout (K1 and K2 share it): one bf16 buffer
     [W1 (128, enc_pad) | trunk (depth-1, 128, 128) | head (16, 128) |
     color0 (64, 32) | color1 (64, 64) | color2 (3, 64)] and one f32 buffer
     of the matching biases. Cached on the field per device."""
-    cache = field.__dict__.setdefault("_k1_pack", {})
+    cache = field.__dict__.setdefault("_kernel_pack", {})
     key = str(device)
     if key in cache:
         return cache[key]
@@ -80,7 +95,7 @@ def _pack_weights(field, device):
     )
     if not shapes_ok:
         raise ValueError(
-            "K1 is specialised to the production field: 8 or 10 octaves, a "
+            "K1 and K2 are specialised to the production field: 8 or 10 octaves, a "
             "128-wide trunk, a 16-row head and colour 31/32->64->64->3"
         )
     enc_pad = -(-n_enc // 8) * 8
@@ -159,7 +174,7 @@ def fused_march_render(
     if int(n_samples) < 1:
         raise ValueError("K1 needs at least one sample per ray")
     octaves, depth, w, b = _pack_weights(field, device)
-    lib = _library()
+    lib = _library(K1)
     if lib.k1_smem_bytes(octaves, depth) > _MAX_SMEM:
         raise ValueError(f"a {depth}-layer trunk does not fit K1's shared memory")
     rays = torch.cat(
@@ -174,6 +189,47 @@ def fused_march_render(
         )
     if err != 0:
         raise RuntimeError(f"K1 (march_render.cu) failed to launch: CUDA error {err}")
-    global _launches
-    _launches += 1
+    _launches[K1] += 1
     return {"rgb": out[1:4].T, "alpha": out[0], "depth": out[4]}
+
+
+def distilled_eval_reference(field, xT, dT):
+    """Plain PyTorch version of K2: ``DistilledField.field_T``."""
+    return field.field_T(xT, dT)
+
+
+def fused_distilled_eval(field, xT, dT):
+    """The distilled field at positions xT (3, N) and unit directions dT
+    (3, N), float32 and contiguous (K2). Returns (sigma (N,), rgbT (3, N)),
+    the contract of ``DistilledField.field_T``. CUDA tensors launch the CUDA
+    kernel; CPU tensors take the plain version."""
+    device = xT.device
+    if device.type == "cpu":
+        return distilled_eval_reference(field, xT, dT)
+    if device.type != "cuda":
+        raise ValueError(f"K2 runs on CUDA or CPU tensors, not {device.type}")
+    N = xT.shape[-1]
+    if xT.shape != (3, N) or dT.shape != (3, N):
+        raise ValueError("K2 expects positions and directions of shape (3, N)")
+    if dT.device != device:
+        raise ValueError("K2's inputs must lie on one device")
+    if xT.dtype != torch.float32 or dT.dtype != torch.float32:
+        raise ValueError("K2 takes float32 positions and directions")
+    if not (xT.is_contiguous() and dT.is_contiguous()):
+        raise ValueError("K2 takes contiguous (3, N) tensors")
+    if N >= 2**31 // 4:
+        raise ValueError(f"K2 takes fewer than 2**29 samples per call, not {N}")
+    octaves, depth, w, b = _pack_weights(field, device)
+    lib = _library(K2)
+    if lib.k2_smem_bytes(octaves, depth) > _MAX_SMEM:
+        raise ValueError(f"a {depth}-layer trunk does not fit K2's shared memory")
+    out = torch.empty((4, N), dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        err = lib.k2_distilled_eval(
+            xT.data_ptr(), dT.data_ptr(), N, w.data_ptr(), b.data_ptr(), octaves, depth,
+            out.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"K2 (distilled_eval.cu) failed to launch: CUDA error {err}")
+    _launches[K2] += 1
+    return out[0], out[1:4]

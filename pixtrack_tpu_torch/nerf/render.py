@@ -1,13 +1,16 @@
 """Volume rendering of the distilled field.
 
-Port of the deterministic, coarse-only part of ``pixtrack_tpu/nerf/render.py``.
-Spaces: the field lives in grid space [0, 1]^3; rays are built from NeRF-space
+Port of the deterministic part of ``pixtrack_tpu/nerf/render.py``. Spaces:
+the field lives in grid space [0, 1]^3; rays are built from NeRF-space
 OpenGL cameras; ``t`` and depth stay in NeRF units.
 
-``render_rays`` always goes through K1 (``fused_march_render``): the CUDA
-kernel on a CUDA tensor, its plain version on a CPU tensor. Renders with an
-importance pass (``n_fine > 0``) or jittered samples need the per-sample
-field kernel K2, which is not ported yet.
+``render_rays`` takes one of two paths, each a kernel on a CUDA tensor and
+its plain version on a CPU tensor:
+- coarse only (``n_fine == 0``): K1, ``fused_march_render``, the whole ray
+  in one launch;
+- with an importance pass: the staged render (JAX render.py:272-338),
+  whose field evaluations go through K2, ``fused_distilled_eval``.
+Jittered samples (``perturb``) need a random sampler, which is not ported.
 """
 
 from __future__ import annotations
@@ -18,9 +21,9 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from pixtrack_tpu_torch._shared import nerf_transform
+from pixtrack_tpu_torch.geometry import nerf_transform
 from pixtrack_tpu_torch.nerf.distill import DistilledField
-from pixtrack_tpu_torch.nerf.fused_mlp import fused_march_render
+from pixtrack_tpu_torch.nerf.fused_mlp import fused_distilled_eval, fused_march_render
 
 _NGP_PERM = [int(i) for i in nerf_transform._NGP_PERM]
 
@@ -28,9 +31,10 @@ _NGP_PERM = [int(i) for i in nerf_transform._NGP_PERM]
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
     n_coarse: int = 64
-    n_fine: int = 0
+    n_fine: int = 64
     min_transmittance: float = 1e-7
     perturb: bool = False
+    chunk: int = 16384  # rays per pass of the staged render
     density_scale: float = 1.0
 
 
@@ -83,7 +87,7 @@ def ray_sphere_intersect(o, d, sphere, eps: float = 1e-9):
 
 
 def _sample_stratified(t_near, t_far, n: int):
-    """(R,) bounds -> (R, n) midpoint samples (the deterministic strata).
+    """(R,) bounds -> (R, n) midpoint samples (the deterministic strata), K1's form.
 
     Computed as ``t_near + (i + 0.5) * dt`` with ``dt = (t_far - t_near) / n``,
     the TPU kernel's and K1's own rounding (the JAX staged path's linspace
@@ -94,6 +98,36 @@ def _sample_stratified(t_near, t_far, n: int):
     dt = (t_far - t_near).clamp_min(0.0) / torch.full_like(t_near, float(n))
     i = torch.arange(n, dtype=torch.float32, device=t_near.device) + 0.5
     return t_near[:, None] + i[None, :] * dt[:, None]
+
+
+def _sample_grid(t_near, t_far, n: int):
+    """(R,) bounds -> (R, n) deterministic strata in the staged render's
+    form: ``t_near + (t_far - t_near) * u`` with ``u`` the bin lefts of
+    ``linspace(0, 1, n + 1)`` plus ``0.5 / n``. (torch's and JAX's linspace
+    differ in the last bit of some values.)"""
+    u = torch.linspace(0.0, 1.0, n + 1, device=t_near.device)[:-1] + 0.5 / n
+    return t_near[:, None] + (t_far - t_near)[:, None] * u
+
+
+def _sample_importance(t_mid, weights, t_near, t_far, n: int):
+    """Deterministic inverse-CDF resampling from coarse weights.
+    t_mid, weights (R, S) -> (R, n) sample ts, at ``u = linspace(0.01, 0.99, n)``."""
+    w = weights + 1e-5
+    cdf = torch.cumsum(w, dim=-1)
+    cdf = cdf / cdf[:, -1:]
+    cdf = torch.cat([torch.zeros_like(cdf[:, :1]), cdf], dim=-1)  # (R, S+1)
+    R, S = weights.shape
+    u = torch.linspace(0.01, 0.99, n, device=weights.device).expand(R, n).contiguous()
+    # right=True counts the cdf entries <= u, as JAX's dense comparison does
+    idx = torch.searchsorted(cdf, u, right=True).clamp(1, S)
+    below = idx - 1
+    cdf_b = torch.gather(cdf, 1, below)
+    cdf_a = torch.gather(cdf, 1, idx)
+    edges = torch.cat([t_near[:, None], t_mid, t_far[:, None]], dim=1)  # (R, S+2)
+    t_b = torch.gather(edges, 1, below)
+    t_a = torch.gather(edges, 1, idx)
+    frac = (u - cdf_b) / (cdf_a - cdf_b).clamp_min(1e-8)
+    return t_b + frac * (t_a - t_b)
 
 
 def _composite(sigma, rgbT, ts, t_far, hit, min_transmittance, density_scale):
@@ -161,22 +195,63 @@ def march_rays(origins_nerf, dirs_nerf, aabb, sphere: Optional[torch.Tensor] = N
     return o_g, d_g, t_near, torch.where(hit, t_far, t_near)
 
 
+def _render_staged(field: DistilledField, o_g, d_g, t_near, t_far, cfg: RenderConfig):
+    """The staged render of grid-space rays (a miss has t_far == t_near):
+    stratified coarse samples, their weights, importance samples, every
+    field evaluation through K2, the stable co-sort and compositing."""
+    hit = t_far > t_near
+    ts = _sample_grid(t_near, t_far, cfg.n_coarse)
+    oT, dT = o_g.T, d_g.T
+    dnT = dT / torch.linalg.norm(dT, dim=0, keepdim=True).clamp_min(1e-9)
+
+    def eval_field(ts_):
+        R, S = ts_.shape
+        x = (oT[:, :, None] + ts_[None] * dT[:, :, None]).clamp(0.0, 1.0).reshape(3, R * S)
+        d_rep = dnT[:, :, None].expand(3, R, S).reshape(3, R * S)
+        sigma, rgbT = fused_distilled_eval(field, x, d_rep)
+        return sigma.reshape(R, S), rgbT.reshape(3, R, S)
+
+    sigma_c, rgb_c = eval_field(ts)
+    # coarse weights; the last delta repeats the one before it
+    deltas = torch.diff(ts, dim=-1)
+    deltas = torch.cat([deltas, deltas[:, -1:]], dim=-1)
+    alpha_c = 1.0 - torch.exp(-sigma_c * cfg.density_scale * deltas)
+    trans_c = torch.cumprod(1.0 - alpha_c + 1e-10, dim=-1)
+    trans_c = torch.cat([torch.ones_like(trans_c[:, :1]), trans_c[:, :-1]], dim=-1)
+    ts_f = _sample_importance(ts, alpha_c * trans_c, t_near, t_far, cfg.n_fine)
+    # the field is deterministic: the coarse samples' values are reused
+    sigma_f, rgb_f = eval_field(ts_f)
+    # a stable sort, as jax.lax.sort: a coarse sample stays before a fine tie
+    ts_all, order = torch.sort(torch.cat([ts, ts_f], dim=-1), dim=-1, stable=True)
+    sigma = torch.gather(torch.cat([sigma_c, sigma_f], dim=-1), 1, order)
+    rgb = torch.gather(torch.cat([rgb_c, rgb_f], dim=-1), 2, order.expand(3, *order.shape))
+    return _composite(sigma, rgb, ts_all, t_far, hit, cfg.min_transmittance, cfg.density_scale)
+
+
 def render_rays(
     field: DistilledField, origins_nerf, dirs_nerf, aabb, cfg: RenderConfig,
     sphere: Optional[torch.Tensor] = None,
 ):
-    """Render NeRF-space rays through K1. Returns dict(rgb, alpha, depth)."""
+    """Render NeRF-space rays: through K1 when ``cfg.n_fine == 0``, else
+    through the staged render and K2, ``cfg.chunk`` rays at a time.
+    Returns dict(rgb, alpha, depth)."""
     if not isinstance(field, DistilledField):
         raise NotImplementedError("only the distilled field renders in the port so far")
-    if cfg.n_fine > 0 or cfg.perturb:
+    if cfg.perturb:
         raise NotImplementedError(
-            "importance-sampled or jittered renders need the per-sample field "
-            "kernel K2 (ROADMAP Queue 2), which is not ported yet"
+            "jittered samples need a random sampler on the device, which is not ported yet"
         )
-    return fused_march_render(
-        field, *march_rays(origins_nerf, dirs_nerf, aabb, sphere),
-        cfg.n_coarse, cfg.min_transmittance, cfg.density_scale,
-    )
+    o_g, d_g, t_near, t_far = march_rays(origins_nerf, dirs_nerf, aabb, sphere)
+    if cfg.n_fine == 0:
+        return fused_march_render(field, o_g, d_g, t_near, t_far, cfg.n_coarse,
+                                  cfg.min_transmittance, cfg.density_scale)
+    parts = [
+        _render_staged(field, o_g[s : s + cfg.chunk], d_g[s : s + cfg.chunk],
+                       t_near[s : s + cfg.chunk], t_far[s : s + cfg.chunk], cfg)
+        for s in range(0, o_g.shape[0], cfg.chunk)
+    ]
+    rgb, alpha, depth = (torch.cat(p) for p in zip(*parts))
+    return {"rgb": rgb, "alpha": alpha, "depth": depth}
 
 
 def render_image(

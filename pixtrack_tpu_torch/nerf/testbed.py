@@ -1,10 +1,12 @@
 """Testbed facade: the instant-ngp-shaped rendering interface, distilled-field subset.
 
-Port of the parts of ``pixtrack_tpu/nerf/testbed.py`` the tracker's cold
-start uses: install a distilled field (``set_baked_field``), the render crop
+Port of the parts of ``pixtrack_tpu/nerf/testbed.py`` the tracker uses:
+install a distilled field (``set_baked_field``), the render crop
 (``render_aabb``), exact intrinsics (``override_intrinsics``), occupied-bounds
-tightening and a one-sample-per-pixel Shade/Depth ``render``. Hash-grid
-snapshots and baking are not ported.
+tightening and a one-sample-per-pixel Shade/Depth ``render`` at the
+defaults of 64 coarse and 32 importance samples per ray (K2), or coarse
+only (K1) when ``n_fine`` is 0. Hash-grid snapshots, baking and jittered
+``spp > 1`` renders are not ported.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
+from pixtrack_tpu_torch._device import resolve
 from pixtrack_tpu_torch.nerf.render import RenderConfig, occupied_bounds, render_image
 
 
@@ -35,7 +38,7 @@ class Testbed:
     __test__ = False  # not a pytest class
 
     def __init__(self, device=None):
-        self.device = torch.device(device) if device is not None else torch.device("cpu")
+        self.device = resolve(device)  # None: the CUDA card
         self.background_color = [1.0, 1.0, 1.0, 0.0]
         self.fov_axis = 0
         self.exposure = 0.0
@@ -94,9 +97,11 @@ class Testbed:
 
     def render(self, width: int, height: int, spp: int = 1, linear: bool = True) -> np.ndarray:
         """(H, W, 4) float32; Depth mode puts NeRF-unit depth in the RGB
-        channels. One deterministic sample per pixel (spp > 1 needs K2)."""
+        channels. One deterministic sample per pixel."""
         if spp != 1:
-            raise NotImplementedError("spp > 1 renders jittered samples, which need K2")
+            raise NotImplementedError(
+                "spp > 1 averages jittered renders, which need a random sampler on the device (not ported yet)"
+            )
         if self._baked is None:
             raise RuntimeError("no field loaded")
         dev = self.device

@@ -1,4 +1,4 @@
-"""SfM layer: the scene container over the shared COLMAP reader."""
+"""SfM layer: the scene container over the COLMAP reader."""
 
 from pixtrack_tpu_torch.sfm.scene import SceneModel
 

@@ -1,6 +1,6 @@
 """SceneModel: an SfM scene packed into flat numpy arrays.
 
-Port of ``pixtrack_tpu/sfm/scene.py`` over the shared ``colmap_io``. The
+Port of ``pixtrack_tpu/sfm/scene.py`` over the port's ``colmap_io``. The
 host-side arrays (numpy, scipy.sparse) are unchanged; only ``Pose`` and
 ``Camera`` are the torch ones.
 """
@@ -12,7 +12,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import scipy.sparse as sp
 
-from pixtrack_tpu_torch._shared import colmap_io
+from pixtrack_tpu_torch.sfm import colmap_io
 from pixtrack_tpu_torch.geometry import Camera, Pose
 
 

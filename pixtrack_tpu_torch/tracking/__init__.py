@@ -1,5 +1,6 @@
-"""Tracking: the refiner, the PixTrack tracker and its fused steady-state frame."""
+"""Tracking: the refiner, the PixTrack tracker, its video loop and its fused steady-state frame."""
 
+from pixtrack_tpu_torch.tracking.base import PoseTracker
 from pixtrack_tpu_torch.tracking.fused import FusedSteadyStep, run_fused
 from pixtrack_tpu_torch.tracking.refiner import Refiner, RefineResult, infer_camera_from_image
 from pixtrack_tpu_torch.tracking.tracker import PixTrackTracker, TrackerConfig
@@ -10,6 +11,7 @@ __all__ = [
     "Refiner",
     "RefineResult",
     "infer_camera_from_image",
+    "PoseTracker",
     "PixTrackTracker",
     "TrackerConfig",
 ]

@@ -20,7 +20,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from pixtrack_tpu_torch._shared import nerf_transform
+from pixtrack_tpu_torch.geometry import nerf_transform
 from pixtrack_tpu_torch.align.interpolate import interpolate_scalar
 from pixtrack_tpu_torch.align.lm import align_pyramid
 from pixtrack_tpu_torch.align.observations import build_level_data, observe_points

@@ -1,7 +1,7 @@
 """Binary mask morphology and the point-splat object mask on device.
 
-Port of ``erode``, ``dilate`` and ``splat_object_mask`` from
-``pixtrack_tpu/tracking/mask.py``. Like ``reduce_window`` with SAME
+Port of ``erode``, ``dilate``, ``depth_to_object_mask`` and
+``splat_object_mask`` from ``pixtrack_tpu/tracking/mask.py``. Like ``reduce_window`` with SAME
 padding, erosion pads with 1 and dilation with 0.
 """
 
@@ -27,6 +27,15 @@ def dilate(mask: torch.Tensor, size: int = 5, iterations: int = 1) -> torch.Tens
     for _ in range(iterations):
         mask = _pool(mask, size, 0.0, 1.0)
     return mask
+
+
+def depth_to_object_mask(depth: torch.Tensor, size: int = 5, erode_iters: int = 1,
+                         dilate_iters: int = 5) -> torch.Tensor:
+    """(H, W) depth -> float32 {0, 1} object mask: depth != 0, eroded,
+    then dilated (the reference tracker's get_mask)."""
+    m = (depth != 0).float()
+    m = erode(m, size, erode_iters)
+    return dilate(m, size, dilate_iters)
 
 
 def splat_object_mask(

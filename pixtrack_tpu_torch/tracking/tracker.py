@@ -1,18 +1,22 @@
 """PixTrackTracker: the NeRF-referenced feature-metric tracker.
 
-Port of what the cold start and ``run_fused`` use from
-``pixtrack_tpu/tracking/tracker.py``: ``TrackerConfig``, construction
-(``fast_render`` forces 96 coarse samples and no importance pass),
-``relocalize``, ``update_reference_ids``, ``get_dynamic_reference``,
-``get_mask`` (point splat), ``refine`` and ``run_fused``. The stepwise
-video loop of ``tracking/base.py``, the NeRF-depth mask and the tracker
-variants are not ported yet.
+Port of ``pixtrack_tpu/tracking/tracker.py``: ``TrackerConfig``,
+construction (``fast_render`` forces 96 coarse samples and no importance
+pass, K1; without it the Testbed keeps its 64 coarse and 32 importance
+samples, K2), ``relocalize``, ``update_reference_ids``,
+``get_dynamic_reference``, ``get_mask`` (point splat, or the reference's
+NeRF-depth render eroded and dilated), best-of-K ``refine``, the stepwise
+video loop of ``PoseTracker`` (``run``, ``run_single_frame``),
+``run_fused``, ``save_poses`` and ``stats``. The tracker variants are not
+ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import pickle
+from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -21,7 +25,8 @@ import torch
 from pixtrack_tpu_torch.align.lm import AlignConfig
 from pixtrack_tpu_torch.geometry import Camera, Pose
 from pixtrack_tpu_torch.geometry.rotation import geodesic_distance, quat_to_rotmat
-from pixtrack_tpu_torch.tracking.mask import splat_object_mask
+from pixtrack_tpu_torch.tracking.base import PoseTracker
+from pixtrack_tpu_torch.tracking.mask import depth_to_object_mask, splat_object_mask
 from pixtrack_tpu_torch.tracking.refiner import ReferenceSet, Refiner, RefineResult, infer_camera_from_image
 from pixtrack_tpu_torch.tracking.render_bridge import render_nerf_view
 
@@ -58,15 +63,17 @@ def _rot_np(qvecs: np.ndarray) -> torch.Tensor:
     return quat_to_rotmat(torch.as_tensor(np.asarray(qvecs), dtype=torch.float32))
 
 
-class PixTrackTracker:
+class PixTrackTracker(PoseTracker):
     def __init__(self, scene, extractor, testbed, nerf2sfm, config: TrackerConfig = TrackerConfig(),
-                 align_cfg: AlignConfig = AlignConfig(), covis: Optional[dict] = None):
+                 align_cfg: AlignConfig = AlignConfig(), eval_path: Optional[str] = None,
+                 covis: Optional[dict] = None):
         self.scene = scene
         self.config = config
         self.testbed = testbed
         if config.fast_render and testbed is not None:
             testbed.n_coarse, testbed.n_fine = 96, 0
         self.nerf2sfm = nerf2sfm
+        self.eval_path = eval_path
         self.refiner = Refiner(scene, extractor, align_cfg)
         self.device = extractor.device
         self.covis = covis if covis is not None else scene.covisibility_dict()
@@ -143,14 +150,18 @@ class PixTrackTracker:
         return ref
 
     def get_mask(self, pose: Pose) -> np.ndarray:
-        if self.config.mask_mode != "splat":
-            raise NotImplementedError("the NeRF-depth mask is not ported yet")
-        if not hasattr(self, "_mask_p3d"):
-            self._mask_p3d = torch.as_tensor(self.scene.xyz.astype(np.float32), device=self.device)
-        H = int(round(float(self.camera.height)))
-        W = int(round(float(self.camera.width)))
-        m = splat_object_mask(pose, self.camera, self._mask_p3d, (H, W),
-                              dilate_iters=self.config.mask_dilate_iters)
+        cfg = self.config
+        if cfg.mask_mode == "splat":
+            if not hasattr(self, "_mask_p3d"):
+                self._mask_p3d = torch.as_tensor(self.scene.xyz.astype(np.float32), device=self.device)
+            H = int(round(float(self.camera.height)))
+            W = int(round(float(self.camera.width)))
+            m = splat_object_mask(pose, self.camera, self._mask_p3d, (H, W),
+                                  dilate_iters=cfg.mask_dilate_iters)
+            return m.cpu().numpy()
+        depth = render_nerf_view(self.testbed, self.nerf2sfm, pose, self.camera, spp=1, depth=True)
+        m = depth_to_object_mask(torch.as_tensor(depth, device=self.device), size=cfg.mask_kernel,
+                                 erode_iters=cfg.mask_erode_iters, dilate_iters=cfg.mask_dilate_iters)
         return m.cpu().numpy()
 
     def refine(self, query) -> bool:
@@ -195,17 +206,26 @@ class PixTrackTracker:
             self.pose = best.T_refined
         self.success = success
         name = os.path.basename(str(query_path))
+        cam = self.camera
         self.pose_history[name] = {
             "success": success,
             "T_init": best.T_init.to_4x4().cpu().numpy(),
             "T_refined": best.T_refined.to_4x4().cpu().numpy(),
+            "camera": {k: getattr(cam, k).cpu().numpy() for k in ("size", "f", "c", "k")},
             "cost": best.cost,
             "reference_ids": list(self.reference_ids),
             "query_path": str(query_path),
         }
-        self.trace.append({"frame": name, "cost": best.cost, "num_iters": best.num_iters,
-                           "num_valid": best.num_valid, "cache_hit": self.cache_hit,
-                           "success": success})
+        self.trace.append({
+            "frame": name,
+            "cost": best.cost,
+            "ref_costs": {int(k): float(v.cost) for k, v in results.items()},
+            "best_ref": int(best_id),
+            "num_iters": best.num_iters,
+            "num_valid": best.num_valid,
+            "cache_hit": self.cache_hit,
+            "success": success,
+        })
         return success
 
     def run_fused(self, frames, camera: Optional[Camera] = None):
@@ -214,3 +234,22 @@ class PixTrackTracker:
         from pixtrack_tpu_torch.tracking.fused import run_fused
 
         return run_fused(self, frames, camera=camera)
+
+    def save_poses(self) -> None:
+        """``poses.pkl`` (pose_history) and ``trackers.pkl`` (trace) under eval_path."""
+        if self.eval_path is None:
+            return
+        os.makedirs(self.eval_path, exist_ok=True)
+        with open(Path(self.eval_path) / "poses.pkl", "wb") as f:
+            pickle.dump(self.pose_history, f)
+        with open(Path(self.eval_path) / "trackers.pkl", "wb") as f:
+            pickle.dump(self.trace, f)
+
+    @property
+    def stats(self) -> dict:
+        return {
+            "cache_hits": self.hits,
+            "cache_misses": self.misses,
+            "relocalizations": self.relocalization_count,
+            "frames": len(self.pose_history),
+        }

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from pixtrack_tpu_torch._shared import nerf_transform
+from pixtrack_tpu_torch.geometry import nerf_transform
 from pixtrack_tpu_torch.geometry import Pose
 
 # the blob object in grid space (nerf.dataset.blob_scene of the JAX package)

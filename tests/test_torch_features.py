@@ -58,7 +58,7 @@ def jax_params():
 def test_unet_f32_shipped_weights(jax_params):
     img = _image()
     pj = JUNet(dtype=jnp.float32).apply(jax_params, jnp.asarray(img)[None])
-    model = load_unet_weights(WEIGHTS, dtype=torch.float32)
+    model = load_unet_weights(WEIGHTS, device="cpu", dtype=torch.float32)
     with torch.no_grad():
         pt = model(torch.as_tensor(img)[None])
     _compare(pj, pt, atol=1e-4)
@@ -67,7 +67,7 @@ def test_unet_f32_shipped_weights(jax_params):
 def test_unet_bf16_shipped_weights(jax_params):
     img = _image(seed=1)
     pj = JUNet().apply(jax_params, jnp.asarray(img)[None])
-    model = load_unet_weights(WEIGHTS, dtype=torch.bfloat16)
+    model = load_unet_weights(WEIGHTS, device="cpu", dtype=torch.bfloat16)
     with torch.no_grad():
         pt = model(torch.as_tensor(img)[None])
     _compare(pj, pt, atol=0.1, mean_tol=2e-2)
@@ -103,7 +103,7 @@ def test_extractor_resize_policy_and_pyramid(jax_params):
     with resize=256): levels, (sx, sy) scales and values all match."""
     img = _image(96, 128, seed=4)
     je = JExtractor(JUNet(dtype=jnp.float32), params=jax_params, resize=256)
-    te = FeatureExtractor(load_unet_weights(WEIGHTS, dtype=torch.float32), resize=256)
+    te = FeatureExtractor(load_unet_weights(WEIGHTS, device="cpu", dtype=torch.float32), resize=256)
     for scale in (4, 1):
         pj = je(img, image_scale=scale)
         pt = te(img, image_scale=scale)

@@ -108,22 +108,59 @@ def test_blob_world_geometry_matches_test_helpers():
     np.testing.assert_array_equal(np.asarray(Tj.t), Tt.t.numpy())
 
 
+def test_entry_points_default_to_the_card(monkeypatch):
+    """With no device named, the entry points ask for the CUDA card and,
+    without one, raise instead of falling back to the CPU; device="cpu" runs there."""
+    from pixtrack_tpu_torch.features import default_extractor
+    from pixtrack_tpu_torch.features.unet import load_unet_weights
+    from pixtrack_tpu_torch.nerf.distill import init_distilled, load_distilled
+    from pixtrack_tpu_torch.nerf.testbed import Testbed
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    field, unet = MW / "field.npz", REPO / "assets" / "unet_basin.npz"
+    calls = [Testbed, lambda **kw: load_distilled(field, **kw), default_extractor,
+             lambda **kw: init_distilled(0, **kw), lambda **kw: load_unet_weights(unet, **kw)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert Testbed(device="cpu").device.type == "cpu"
+    assert load_distilled(field, device="cpu").device.type == "cpu"
+    assert default_extractor(device="cpu").device.type == "cpu"
+
+
+_NO_JAX_CHECK = """
+import builtins, importlib, pkgutil, runpy, sys
+from pathlib import Path
+jax_pkg = (Path.cwd() / "pixtrack_tpu").resolve()
+def under_jax_pkg(m):
+    f = getattr(m, "__file__", None)
+    return f is not None and Path(f).resolve().is_relative_to(jax_pkg)
+def bad():
+    names = [k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "pixtrack_tpu")]
+    return names + [k for k, m in list(sys.modules.items()) if under_jax_pkg(m)]
+# chip_smoke.py and smoke_worlds.py import or load nothing of the JAX package
+runpy.run_path("smoke_worlds.py")
+mod = runpy.run_path("chip_smoke.py", run_name="chip_smoke")
+import smoke_worlds
+assert not bad(), bad()
+import pixtrack_tpu_torch as p
+mods = [m.name for m in pkgutil.walk_packages(p.__path__, "pixtrack_tpu_torch.")]
+for m in mods: importlib.import_module(m)
+assert not bad(), bad()
+print(len(mods))
+"""
+
+
 def test_port_imports_no_jax():
-    """Every module of the port imports without JAX, flax or tqdm code of its own."""
-    code = (
-        "import importlib, pkgutil, sys\n"
-        "import pixtrack_tpu_torch as p\n"
-        "mods = [m.name for m in pkgutil.walk_packages(p.__path__, 'pixtrack_tpu_torch.')]\n"
-        "for m in mods: importlib.import_module(m)\n"
-        "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'pixtrack_tpu')]\n"
-        "assert not bad, bad\n"
-        "print(len(mods))\n"
-    )
-    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)
+    """Every module of the port, chip_smoke.py and smoke_worlds.py import
+    without JAX, flax, tqdm or any file of the JAX package."""
+    out = subprocess.run([sys.executable, "-c", _NO_JAX_CHECK], cwd=REPO, capture_output=True, text=True,
+                         timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 25
-    # torch itself may load tqdm; no module of the port imports it
-    for src in (REPO / "pixtrack_tpu_torch").rglob("*.py"):
+    assert int(out.stdout.strip()) >= 30
+    # torch itself may load tqdm; no module of the port imports it, nor the two scripts
+    srcs = list((REPO / "pixtrack_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "smoke_worlds.py"]
+    for src in srcs:
         for line in src.read_text().splitlines():
             words = line.split()
             if words[:1] in (["import"], ["from"]) and len(words) > 1:

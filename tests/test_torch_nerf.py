@@ -1,11 +1,13 @@
-"""Parity of the PyTorch render path (distilled field, K1's plain version,
-render_rays, Testbed) with the JAX package on the CPU. K1's CUDA kernel
-is held against its plain version on the card in tests/test_torch_cuda.py.
+"""Parity of the PyTorch render path (distilled field, the plain versions
+of K1 and K2, both paths of render_rays, the importance sampler, Testbed)
+with the JAX package on the CPU. The CUDA kernels are held against their
+plain versions on the card in tests/test_torch_cuda.py.
 
 Tolerances are the JAX package's own (tests/test_fused_mlp.py): 2e-3 on
 sigma and 5e-3 on rgb, alpha and depth. Both sides round every dense
 layer's operands to bf16 and sum in f32; what differs is the order of the
-f32 sums.
+f32 sums. Trained fields take 5e-3 on 99.9 % of values and 1e-2 on all
+(``_assert_trained_close``).
 """
 
 from pathlib import Path
@@ -17,15 +19,24 @@ import pytest
 import torch
 
 from pixtrack_tpu.nerf.distill import init_distilled, load_distilled as jload_distilled
+from pixtrack_tpu.nerf.fused_mlp import fused_distilled_eval as jfused_distilled_eval
 from pixtrack_tpu.nerf.fused_mlp import fused_march_render as jfused_march_render
 from pixtrack_tpu.nerf.render import RenderConfig as JRenderConfig
+from pixtrack_tpu.nerf.render import _sample_importance as j_sample_importance
 from pixtrack_tpu.nerf.render import _to_grid as j_to_grid
 from pixtrack_tpu.nerf.render import ray_aabb_intersect as j_ray_aabb
 from pixtrack_tpu.nerf.render import render_rays as jrender_rays
 from pixtrack_tpu.nerf.testbed import Testbed as JTestbed
 from pixtrack_tpu_torch.nerf import fused_mlp
 from pixtrack_tpu_torch.nerf.distill import distilled_from_arrays, load_distilled
-from pixtrack_tpu_torch.nerf.render import RenderConfig, _to_grid, ray_aabb_intersect, render_rays
+from pixtrack_tpu_torch.nerf.render import (
+    RenderConfig,
+    _sample_importance,
+    _to_grid,
+    march_rays,
+    ray_aabb_intersect,
+    render_rays,
+)
 from pixtrack_tpu_torch.nerf.testbed import Testbed
 
 torch.set_num_threads(2)
@@ -46,7 +57,7 @@ def _arrays(f):
 
 def _pair(octaves):
     jf = init_distilled(jax.random.PRNGKey(3), octaves=octaves)
-    return jf, distilled_from_arrays(_arrays(jf))
+    return jf, distilled_from_arrays(_arrays(jf), device="cpu")
 
 
 def _samples(n=1000, seed=0):
@@ -85,7 +96,7 @@ def test_distilled_field_random_weights(octaves):
 
 @pytest.mark.parametrize("rel", ["assets/bench_field.npz", "assets/mesh_world/field.npz"])
 def test_distilled_field_shipped_weights(rel):
-    tf = load_distilled(REPO / rel)
+    tf = load_distilled(REPO / rel, device="cpu")
     assert tf.octaves == {"assets/bench_field.npz": 8}.get(rel, 10)
     _check_field(jload_distilled(REPO / rel), tf, trained=True)
 
@@ -120,40 +131,145 @@ def test_k1_plain_matches_pallas_and_staged(octaves):
     ttn, ttf, thit = ray_aabb_intersect(to_g, td_g, torch.as_tensor(aabb[0]), torch.as_tensor(aabb[1]))
     ttf = torch.where(thit, torch.maximum(ttf, ttn + 1e-4), ttn)
     plain = fused_mlp.march_render_reference(tf, to_g, td_g, ttn, ttf, S, cfg.min_transmittance)
-    before = fused_mlp.launch_count()
+    before = fused_mlp.launch_count(fused_mlp.K1)
     port = render_rays(tf, torch.as_tensor(o), torch.as_tensor(d), torch.as_tensor(aabb),
                        RenderConfig(n_coarse=S, n_fine=0))
-    assert fused_mlp.launch_count() == before  # CPU tensors never reach the kernel
+    assert fused_mlp.launch_count(fused_mlp.K1) == before  # CPU tensors never reach the kernel
     for k in ("rgb", "alpha", "depth"):
         for ref in (pallas, staged):
             np.testing.assert_allclose(np.asarray(ref[k]), plain[k].numpy(), atol=RGB_TOL, err_msg=k)
             np.testing.assert_allclose(np.asarray(ref[k]), port[k].numpy(), atol=RGB_TOL, err_msg=k)
 
 
-def test_render_rays_refuses_what_needs_k2():
+@pytest.mark.parametrize("octaves", [8, 10])
+def test_k2_plain_matches_pallas_and_field(octaves):
+    """K2's wrapper on CPU tensors (its plain version) against the Pallas
+    kernel in interpret mode and JAX's field_T, N not a multiple of a tile."""
+    jf, tf = _pair(octaves)
+    x, d = _samples(n=1000)
+    s_field, c_field = jf.field_T(jnp.asarray(x), jnp.asarray(d))
+    s_pallas, c_pallas = jfused_distilled_eval(jf, jnp.asarray(x), jnp.asarray(d), interpret=True)
+    s_port, c_port = fused_mlp.fused_distilled_eval(tf, torch.as_tensor(x), torch.as_tensor(d))
+    s_plain, c_plain = fused_mlp.distilled_eval_reference(tf, torch.as_tensor(x), torch.as_tensor(d))
+    assert s_port.shape == (1000,) and c_port.shape == (3, 1000)
+    np.testing.assert_array_equal(s_port.numpy(), s_plain.numpy())
+    np.testing.assert_array_equal(c_port.numpy(), c_plain.numpy())
+    for s_ref, c_ref in ((s_field, c_field), (s_pallas, c_pallas)):
+        np.testing.assert_allclose(np.asarray(s_ref), s_port.numpy(), atol=SIGMA_TOL)
+        np.testing.assert_allclose(np.asarray(c_ref), c_port.numpy(), atol=RGB_TOL)
+
+
+def test_sample_importance_matches_jax():
+    """Inverse-CDF resampling on sorted coarse ts and weights with peaks,
+    flat stretches and all-zero rays, against JAX's deterministic sampler."""
+    rng = np.random.default_rng(4)
+    R, S, n = 64, 64, 32
+    t_near = rng.uniform(0.5, 1.5, R).astype(np.float32)
+    t_far = t_near + rng.uniform(0.05, 2.0, R).astype(np.float32)
+    u = np.sort(rng.uniform(0, 1, (R, S)), axis=1).astype(np.float32)
+    t_mid = t_near[:, None] + (t_far - t_near)[:, None] * u
+    w = rng.uniform(0, 1, (R, S)).astype(np.float32) ** 8
+    w[:8] = 0.0
+    w[8:16, 20:24] = 5.0
+    ref = j_sample_importance(None, jnp.asarray(t_mid), jnp.asarray(w), jnp.asarray(t_near),
+                              jnp.asarray(t_far), n)
+    port = _sample_importance(*(torch.as_tensor(a) for a in (t_mid, w, t_near, t_far)), n)
+    assert port.shape == (R, n)
+    np.testing.assert_allclose(np.asarray(ref), port.numpy(), atol=1e-5)
+
+
+def _staged_rays():
+    """_rays() plus two rays from ~300 units away that cross an edge of the
+    [0.25, 0.75]^3 box over less than the 1e-4 floor of an interval: their
+    samples lie within a few ulps, so fine samples tie with coarse ones."""
+    o, d = _rays()
+    o2 = np.array([[0.0, 212.88202, -211.38205], [0.0, 212.882, -211.382065]], np.float32)
+    d2 = np.array([[0.0, -1.0, 1.0]] * 2, np.float32) / np.float32(np.sqrt(2.0))
+    return np.concatenate([o, o2]), np.concatenate([d, d2])
+
+
+@pytest.mark.parametrize("weights", [8, 10, "assets/bench_field.npz", "assets/mesh_world/field.npz"])
+def test_staged_render_rays_matches_jax(weights, monkeypatch):
+    """render_rays with an importance pass (the staged path, K2's plain
+    version) against JAX's staged render, miss rays and coarse/fine ties
+    included: random weights at 5e-3, trained weights under the trained rule."""
+    from pixtrack_tpu_torch.nerf import render as trender
+
+    if isinstance(weights, int):
+        jf, tf = _pair(weights)
+    else:
+        jf, tf = jload_distilled(REPO / weights), load_distilled(REPO / weights, device="cpu")
+    o, d = _staged_rays()
+    aabb = np.asarray([[0.25] * 3, [0.75] * 3], np.float32)
+    n_c, n_f = 12, 6
+    jcfg = JRenderConfig(n_coarse=n_c, n_fine=n_f, perturb=False, fused=False)
+    staged = jrender_rays(jf, None, jnp.asarray(o), jnp.asarray(d), jnp.asarray(aabb), jcfg)
+    # record the positions of every field evaluation (coarse, fine per chunk)
+    calls = []
+    monkeypatch.setattr(trender, "fused_distilled_eval",
+                        lambda f, x, dd: calls.append(x) or fused_mlp.fused_distilled_eval(f, x, dd))
+    cfg = RenderConfig(n_coarse=n_c, n_fine=n_f, chunk=40)  # three chunks, the last ragged
+    port = render_rays(tf, torch.as_tensor(o), torch.as_tensor(d), torch.as_tensor(aabb), cfg)
+
+    assert len(calls) == 6
+    xc, xf = calls[4].reshape(3, -1, n_c), calls[5].reshape(3, -1, n_f)  # the last chunk
+    tie = (xf[:, :, :, None] == xc[:, :, None, :]).all(0).any(-1).any(-1)
+    assert bool(tie[-2:].all())  # the grazing rays hit the box and tie
+    _, _, tn, tfar = march_rays(torch.as_tensor(o), torch.as_tensor(d), torch.as_tensor(aabb))
+    assert 0 < int((tfar > tn).sum()) < len(o) and bool((tfar > tn)[-2:].all())
+    assert float(np.asarray(staged["alpha"]).max()) > 0.05
+    for k in ("rgb", "alpha", "depth"):
+        if isinstance(weights, int):
+            np.testing.assert_allclose(np.asarray(staged[k]), port[k].numpy(), atol=RGB_TOL, err_msg=k)
+        else:
+            _assert_trained_close(staged[k], port[k].numpy())
+
+
+def test_kernels_not_launched_on_cpu():
+    """On CPU tensors both render paths take the plain versions: neither
+    kernel's launch count moves."""
+    _, tf = _pair(8)
+    o, d = (torch.as_tensor(a) for a in _rays(16))
+    aabb = torch.tensor([[0.25] * 3, [0.75] * 3])
+    before = {k: fused_mlp.launch_count(k) for k in (fused_mlp.K1, fused_mlp.K2)}
+    for cfg in (RenderConfig(n_coarse=4, n_fine=0), RenderConfig(n_coarse=4, n_fine=4)):
+        out = render_rays(tf, o, d, aabb, cfg)
+        assert out["alpha"].shape == (16,)
+    fused_mlp.fused_distilled_eval(tf, *(torch.as_tensor(a) for a in _samples(n=10)))
+    assert before == {k: fused_mlp.launch_count(k) for k in (fused_mlp.K1, fused_mlp.K2)}
+
+
+def test_render_refuses_jittered_samples():
+    """Jittered samples (perturb, spp > 1) need a random sampler that is not ported."""
     _, tf = _pair(8)
     o, d = (torch.as_tensor(a) for a in _rays(8))
     aabb = torch.tensor([[0.25] * 3, [0.75] * 3])
-    for cfg in (RenderConfig(n_coarse=4, n_fine=4), RenderConfig(n_coarse=4, perturb=True)):
-        with pytest.raises(NotImplementedError, match="K2"):
+    for cfg in (RenderConfig(n_coarse=4, n_fine=0, perturb=True), RenderConfig(n_coarse=4, perturb=True)):
+        with pytest.raises(NotImplementedError, match="random sampler"):
             render_rays(tf, o, d, aabb, cfg)
+    tb = Testbed(device="cpu")
+    tb.set_baked_field(tf)
+    with pytest.raises(NotImplementedError, match="random sampler"):
+        tb.render(8, 6, spp=4)
 
 
-def test_testbed_render_and_bounds_match_jax():
+@pytest.mark.parametrize("n_coarse,n_fine", [(24, 0), (64, 32)])
+def test_testbed_render_and_bounds_match_jax(n_coarse, n_fine):
     """Mesh-world field: occupied-bounds tightening and a Shade + Depth
-    render at a small size through both Testbeds."""
+    render at a small size through both Testbeds, coarse only (K1's path)
+    and at the Testbed's 64 coarse + 32 importance samples (K2's path)."""
     import json
 
     meta = json.loads((REPO / "assets/mesh_world/meta.json").read_text())
-    jtb, ttb = JTestbed(), Testbed()
+    jtb, ttb = JTestbed(), Testbed(device="cpu")
     jtb.set_baked_field(jload_distilled(REPO / "assets/mesh_world/field.npz"))
-    ttb.set_baked_field(load_distilled(REPO / "assets/mesh_world/field.npz"))
+    ttb.set_baked_field(load_distilled(REPO / "assets/mesh_world/field.npz", device="cpu"))
     c2w = np.eye(4)
     c2w[:3, 3] = [0.0, 0.2, 1.9]
     for tb in (jtb, ttb):
         tb.render_aabb.min = [float(v) for v in meta["aabb"][0]]
         tb.render_aabb.max = [float(v) for v in meta["aabb"][1]]
-        tb.n_coarse, tb.n_fine = 24, 0
+        tb.n_coarse, tb.n_fine = n_coarse, n_fine
         tb.tighten_render_bounds(res=24)
         tb.override_intrinsics = (30.0, 30.0, 15.5, 11.5)
         tb.set_nerf_camera_matrix(c2w[:3])
