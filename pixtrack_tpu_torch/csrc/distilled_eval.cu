@@ -14,17 +14,21 @@
 //
 // What bounds it on an H100: arithmetic. A sample costs ~66k multiply-adds
 // (131,456 FLOP at 10 octaves) against 40 bytes in and out (6 floats in, 4
-// out), ~3,300 FLOP per byte: far above the card's ridge point on any unit.
-// This first version runs the products on the FP32 pipes (67 TFLOP/s), not
-// the tensor cores, which is the headroom left for later work (wgmma on bf16).
+// out), ~3,300 FLOP per byte, far above the card's ridge point: the limit is
+// the tensor cores' bf16 rate, and after them the FP32 pipes that compute 30
+// sincosf a sample and the layers' epilogues.
 //
 // What the design does about it: the network is distilled_mlp.cuh, shared
-// with K1 (weights and activations in shared memory, register tiles of f32
-// sums). A tile here is only 64 samples, and the weights are ~131 KB, so
-// reloading them per tile would cost as much traffic as the samples carry
-// arithmetic: the grid is persistent instead, one block per SM, each block
-// loading the weights once and striding over the tiles. The ragged last tile
-// computes on zero inputs and stores nothing.
+// with K1: every layer a chain of wgmma products on the bf16 tensor cores,
+// weights resident in shared memory, activations in registers from the
+// encoding to the colour logits. The ~131 KB of weights allow one block per
+// SM, so the grid is persistent: one block per SM loads the weights once,
+// and each of its warpgroups strides over 64-sample tiles of its own, so
+// that one warpgroup's sin/cos and epilogues overlap another's products. A
+// thread reads the positions and directions of the two tile rows its
+// fragments hold and the threads that hold column 0 (sigma, r, g) and
+// column 2 (b) of a row store it; the ragged last tile computes on zeros
+// and stores nothing.
 //
 // Built by nvcc into a shared library with a plain C entry point
 // (k2_distilled_eval), loaded with ctypes by pixtrack_tpu_torch/nerf/fused_mlp.py.
@@ -37,37 +41,49 @@ using namespace distilled;
 
 // x, d: (3, N) positions and unit directions; out: (4, N) rows sigma, rgb(3).
 template <int OCT>
-__global__ void __launch_bounds__(NT) eval_kernel(
+__global__ void __launch_bounds__(NWG * WG, 1) eval_kernel(
     const float* __restrict__ x, const float* __restrict__ d, int N,
     const bf16* __restrict__ wg, const float* __restrict__ bg, int depth,
     float* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const Tile tile = carve<OCT>(smem, depth);
-  load_weights<OCT>(tile, wg, bg, depth);
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Net net = load_network(smem, wg, bg, depth);
 
-  const int tid = threadIdx.x;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int row = 16 * ((threadIdx.x >> 5) & 3) + g;  // this thread's tile rows: row, row + 8
+  const size_t n = static_cast<size_t>(N);
   const int n_tiles = (N + TR - 1) / TR;
-  for (int k = blockIdx.x; k < n_tiles; k += gridDim.x) {
-    const int i = k * TR + tid;
-    if (tid < TR) {
-      const bool in = i < N;
+  for (int k = blockIdx.x * NWG + (threadIdx.x >> 7); k < n_tiles; k += gridDim.x * NWG) {
+    const int i0 = k * TR + row, i1 = i0 + 8;
+    float p0[3], p1[3], d0[3], d1[3];
 #pragma unroll
-      for (int c = 0; c < 3; ++c) tile.pos[c * TR + tid] = in ? x[static_cast<size_t>(c) * N + i] : 0.f;
-      const float dx = in ? d[i] : 0.f;
-      const float dy = in ? d[static_cast<size_t>(N) + i] : 0.f;
-      const float dz = in ? d[2 * static_cast<size_t>(N) + i] : 0.f;
-      sh_deg4(dx, dy, dz, tile.cin, tid);
+    for (int c = 0; c < 3; ++c) {
+      p0[c] = i0 < N ? x[c * n + i0] : 0.f;
+      p1[c] = i1 < N ? x[c * n + i1] : 0.f;
+      d0[c] = i0 < N ? d[c * n + i0] : 0.f;
+      d1[c] = i1 < N ? d[c * n + i1] : 0.f;
     }
-    // also orders this tile's writes after the previous tile's reads
-    __syncthreads();
+    uint32_t enc[16], sh[4];
+    encode<OCT>(p0, p1, t, enc);
+    sh_fragment(d0[0], d0[1], d0[2], t, sh[0], sh[2]);
+    sh_fragment(d1[0], d1[1], d1[2], t, sh[1], sh[3]);
 
-    network<OCT>(tile, depth);
+    float head[2], rgb[4];
+    network(net, enc, sh, t, head, rgb);
 
-    if (tid < TR && i < N) {
-      out[i] = density(tile.hd[tid]);
-#pragma unroll
-      for (int c = 0; c < 3; ++c)
-        out[static_cast<size_t>(1 + c) * N + i] = sigmoid(tile.rgbl[c * TR + tid]);
+    if (t == 0) {
+      if (i0 < N) {
+        out[i0] = density(head[0]);
+        out[n + i0] = sigmoid(rgb[0]);
+        out[2 * n + i0] = sigmoid(rgb[1]);
+      }
+      if (i1 < N) {
+        out[i1] = density(head[1]);
+        out[n + i1] = sigmoid(rgb[2]);
+        out[2 * n + i1] = sigmoid(rgb[3]);
+      }
+    } else if (t == 1) {
+      if (i0 < N) out[3 * n + i0] = sigmoid(rgb[0]);
+      if (i1 < N) out[3 * n + i1] = sigmoid(rgb[2]);
     }
   }
 }
@@ -75,16 +91,14 @@ __global__ void __launch_bounds__(NT) eval_kernel(
 template <int OCT>
 cudaError_t launch(const float* x, const float* d, int N, const void* w, const float* b,
                    int depth, float* out, cudaStream_t stream) {
-  cudaError_t err = allow_smem(eval_kernel<OCT>, OCT, depth);
+  cudaError_t err = allow_smem(eval_kernel<OCT>, smem_bytes(depth));
   if (err != cudaSuccess) return err;
-  int device = 0, sms = 0;
-  err = cudaGetDevice(&device);
+  int sms = 0;
+  err = sm_count(&sms);
   if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
-  const int n_tiles = (N + TR - 1) / TR;
-  const dim3 grid(n_tiles < sms ? n_tiles : sms);
-  eval_kernel<OCT><<<grid, NT, smem_bytes(OCT, depth), stream>>>(
+  const int n_blocks = ((N + TR - 1) / TR + NWG - 1) / NWG;
+  const dim3 grid(n_blocks < sms ? n_blocks : sms);
+  eval_kernel<OCT><<<grid, NWG * WG, smem_bytes(depth), stream>>>(
       x, d, N, static_cast<const bf16*>(w), b, depth, out);
   return cudaGetLastError();
 }
@@ -94,7 +108,7 @@ cudaError_t launch(const float* x, const float* d, int N, const void* w, const f
 extern "C" {
 
 // Dynamic shared memory one block needs, in bytes.
-size_t k2_smem_bytes(int octaves, int depth) { return smem_bytes(octaves, depth); }
+size_t k2_smem_bytes(int depth) { return smem_bytes(depth); }
 
 // Weights `w` (bf16) and biases `b` (f32) are packed as the wrapper's
 // _pack_weights writes them (K1's layout). Returns the CUDA error code of the

@@ -34,6 +34,10 @@ _libs = {}
 _MAX_SMEM = 232448
 # rays per slice of K1's plain version (bounds its per-sample activations)
 _PLAIN_CHUNK = 8192
+# encoding columns of the kernels' first layer (6 * octaves + 3, zero-padded)
+_K_ENC = 64
+# the counters of the last K1 launch (see last_samples_evaluated)
+_k1_scratch = None
 
 
 def launch_count(kernel: str) -> int:
@@ -43,6 +47,18 @@ def launch_count(kernel: str) -> int:
 def reset_launch_counts() -> None:
     for k in _launches:
         _launches[k] = 0
+
+
+def last_samples_evaluated():
+    """What the last K1 launch walked through the network: dict(hit_rays,
+    evaluated = 64 x the tile steps of every warpgroup, empty slots
+    included, live = those of them that belonged to a ray that could still
+    add colour, which is what the rays need). Synchronises; None before the
+    first launch."""
+    if _k1_scratch is None:
+        return None
+    n_hit, _, evaluated, live = (int(v) for v in _k1_scratch.cpu())
+    return {"hit_rays": n_hit, "evaluated": evaluated, "live": live}
 
 
 def build_kernels() -> None:
@@ -58,23 +74,88 @@ def _library(kernel: str):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         if kernel == K1:
             lib.k1_march_render.restype = i
-            lib.k1_march_render.argtypes = [p, i, p, p, i, i, i, f, f, p, p]
+            lib.k1_march_render.argtypes = [p, i, p, p, i, i, i, f, f, p, p, p, p]
             lib.k1_smem_bytes.restype = ctypes.c_size_t
-            lib.k1_smem_bytes.argtypes = [i, i]
+            lib.k1_smem_bytes.argtypes = [i]
         else:
             lib.k2_distilled_eval.restype = i
             lib.k2_distilled_eval.argtypes = [p, p, i, p, p, i, i, p, p]
             lib.k2_smem_bytes.restype = ctypes.c_size_t
-            lib.k2_smem_bytes.argtypes = [i, i]
+            lib.k2_smem_bytes.argtypes = [i]
         _libs[kernel] = lib
     return _libs[kernel]
 
 
+# ---- the kernels' weight layout, written once here and read back by _unpack_weights ----
+#
+# A layer's (out, in) matrix becomes the tensor cores' B operand: `in` is K, `out` is N.
+# 1. Columns (K). The first layer's 6 * octaves + 3 encoding columns [xyz, sin of
+#    3 * octaves angles, cos of the same] are reordered to [sin a_0, cos a_0, sin a_1,
+#    cos a_1, ..., x, y, z] and zero-padded to 64, so that a thread's pair of
+#    neighbouring columns is one sincos. The first colour layer's columns [15 geometry,
+#    16 SH (, 1 unused)] become [1 zero column, 15 geometry, 16 SH]: the head's 16 outputs
+#    [raw density, 15 geometry] then feed columns 0..15 as they are, the raw density
+#    against the zero column.
+# 2. Rows (N). The last colour layer's 3 rows are zero-padded to 8.
+# 3. Tiling. Each (N, K) matrix, in bf16, is stored as 8x8 core matrices of 128
+#    contiguous bytes in the order [k // 8][n // 8][n % 8][k % 8], the layout a wgmma
+#    shared-memory descriptor reads without a swizzle.
+# Biases stay f32 in layer order, the last zero-padded to 8.
+
+
+def _enc_columns(octaves: int):
+    """For each of the kernel's 64 encoding columns, the row of
+    ``DistilledField.encode_T`` it holds, or -1 for a zero column."""
+    n_ang = 3 * octaves
+    cols = [-1] * _K_ENC
+    for m in range(n_ang):
+        cols[2 * m], cols[2 * m + 1] = 3 + m, 3 + n_ang + m
+    cols[2 * n_ang : 2 * n_ang + 3] = [0, 1, 2]
+    return cols
+
+
+# the kernel's 32 colour-input columns: -1 the zero column, then the field's 15 + 16
+_COLOR_COLUMNS = [-1] + list(range(31))
+
+
+def _gather_columns(w, cols):
+    """(N, len(cols)) with column c = w[:, cols[c]], zeros where cols[c] < 0."""
+    idx = torch.as_tensor(cols, device=w.device)
+    return torch.where(idx >= 0, w[:, idx.clamp_min(0)], torch.zeros((), dtype=w.dtype, device=w.device))
+
+
+def _tile(m):
+    """(N, K) -> flat [k // 8][n // 8][n % 8][k % 8]."""
+    n, k = m.shape
+    return m.reshape(n // 8, 8, k // 8, 8).permute(2, 0, 1, 3).reshape(-1)
+
+
+def _untile(flat, n, k):
+    """The inverse of ``_tile``."""
+    return flat.reshape(k // 8, n // 8, 8, 8).permute(1, 2, 0, 3).reshape(n, k)
+
+
+def _layer_shapes(depth: int):
+    """(N, K) of every matrix in the packed buffer, in order."""
+    return [(128, _K_ENC)] + [(128, 128)] * (depth - 1) + [(16, 128), (64, 32), (64, 64), (8, 64)]
+
+
+def _unpack_weights(w, depth: int):
+    """The packed bf16 buffer read back as its list of (N, K) matrices
+    (bf16), columns and padding as the kernels see them."""
+    mats, at = [], 0
+    for n, k in _layer_shapes(depth):
+        mats.append(_untile(w[at : at + n * k], n, k))
+        at += n * k
+    return mats
+
+
 def _pack_weights(field, device):
-    """The field's weights in the kernels' layout (K1 and K2 share it): one bf16 buffer
-    [W1 (128, enc_pad) | trunk (depth-1, 128, 128) | head (16, 128) |
-    color0 (64, 32) | color1 (64, 64) | color2 (3, 64)] and one f32 buffer
-    of the matching biases. Cached on the field per device."""
+    """The field's weights in the kernels' layout (K1 and K2 share it; the
+    comment above defines it): one bf16 buffer of the tiled matrices [W1
+    (128, 64) | trunk (depth-1, 128, 128) | head (16, 128) | color0 (64, 32)
+    | color1 (64, 64) | color2 (8, 64)] and one f32 buffer of the matching
+    biases. Cached on the field per device."""
     cache = field.__dict__.setdefault("_kernel_pack", {})
     key = str(device)
     if key in cache:
@@ -98,20 +179,14 @@ def _pack_weights(field, device):
             "K1 and K2 are specialised to the production field: 8 or 10 octaves, a "
             "128-wide trunk, a 16-row head and colour 31/32->64->64->3"
         )
-    enc_pad = -(-n_enc // 8) * 8
-
-    def pad_cols(w, cols):
-        out = torch.zeros((w.shape[0], cols), dtype=torch.float32, device=device)
-        out[:, : w.shape[1]] = w.to(device)
-        return out
-
-    mats = [pad_cols(field.trunk[0]["kernel"], enc_pad)]
-    mats += [p["kernel"].to(device) for p in field.trunk[1:]]
-    mats += [field.head["kernel"].to(device), pad_cols(field.color[0]["kernel"], 32)]
-    mats += [field.color[1]["kernel"].to(device), field.color[2]["kernel"].to(device)]
     layers = field.trunk + [field.head] + field.color
-    w = torch.cat([m.reshape(-1) for m in mats]).to(torch.bfloat16).contiguous()
-    b = torch.cat([p["bias"].reshape(-1).to(device) for p in layers]).float().contiguous()
+    mats = [p["kernel"].to(device).float() for p in layers]
+    mats[0] = _gather_columns(mats[0], _enc_columns(field.octaves))
+    mats[depth + 1] = _gather_columns(mats[depth + 1], _COLOR_COLUMNS)
+    mats[-1] = torch.cat([mats[-1], torch.zeros((5, 64), device=device)])
+    w = torch.cat([_tile(m.to(torch.bfloat16)) for m in mats]).contiguous()
+    biases = [p["bias"].reshape(-1).to(device).float() for p in layers] + [torch.zeros(5, device=device)]
+    b = torch.cat(biases).contiguous()
     cache[key] = (field.octaves, depth, w, b)
     return cache[key]
 
@@ -175,21 +250,27 @@ def fused_march_render(
         raise ValueError("K1 needs at least one sample per ray")
     octaves, depth, w, b = _pack_weights(field, device)
     lib = _library(K1)
-    if lib.k1_smem_bytes(octaves, depth) > _MAX_SMEM:
+    if lib.k1_smem_bytes(depth) > _MAX_SMEM:
         raise ValueError(f"a {depth}-layer trunk does not fit K1's shared memory")
     rays = torch.cat(
         [o_g.T.float(), d_g.T.float(), t_near[None].float(), t_far[None].float()], dim=0
     ).contiguous()
     out = torch.empty((5, R), dtype=torch.float32, device=device)
+    # the kernel's scratch: the list of hit rays, and its zeroed counters
+    hits = torch.empty((R,), dtype=torch.int32, device=device)
+    scratch = torch.zeros((4,), dtype=torch.int64, device=device)
     with torch.cuda.device(device):
         err = lib.k1_march_render(
             rays.data_ptr(), R, w.data_ptr(), b.data_ptr(), octaves, depth,
             int(n_samples), float(min_transmittance), float(density_scale),
-            out.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
+            out.data_ptr(), hits.data_ptr(), scratch.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"K1 (march_render.cu) failed to launch: CUDA error {err}")
     _launches[K1] += 1
+    global _k1_scratch
+    _k1_scratch = scratch
     return {"rgb": out[1:4].T, "alpha": out[0], "depth": out[4]}
 
 
@@ -221,7 +302,7 @@ def fused_distilled_eval(field, xT, dT):
         raise ValueError(f"K2 takes fewer than 2**29 samples per call, not {N}")
     octaves, depth, w, b = _pack_weights(field, device)
     lib = _library(K2)
-    if lib.k2_smem_bytes(octaves, depth) > _MAX_SMEM:
+    if lib.k2_smem_bytes(depth) > _MAX_SMEM:
         raise ValueError(f"a {depth}-layer trunk does not fit K2's shared memory")
     out = torch.empty((4, N), dtype=torch.float32, device=device)
     with torch.cuda.device(device):

@@ -5,13 +5,25 @@ imports no JAX, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-Tolerances are tests/test_fused_mlp.py's: K1 5e-3 on alpha, rgb and depth;
-K2 2e-3 on sigma and 5e-3 on rgb; on random production-shape fields and on
-the shipped trained ones. Both versions round every product's operands to
-bf16 and sum in f32, in another order; K1's plain version places its
-samples, angles and direction norms with the kernel's own roundings, and K2
-and its plain version take the same positions, so each pair rounds its
-activations to bf16 at the same points.
+K1 is held to tests/test_fused_mlp.py's 5e-3 on alpha, rgb and depth, on
+random production-shape fields and on the shipped trained ones. Both
+versions round every product's operands to bf16 and sum in f32; K1's plain
+version places its samples, angles and direction norms with the kernel's
+own roundings, and K2 and its plain version take the same positions. The
+kernels sum on the tensor cores, in another order than the plain version's
+f32 matmul, so now and then a hidden activation rounds to the other bf16
+neighbour; the trained fields' large weights carry such a flip to the
+outputs. K2 is therefore held on rgb and on log1p(sigma) (softplus(h), the
+quantity whose error is absolute: sigma itself reaches 6e5 on the mesh
+field) to 5e-3 on 99.9 % of the samples and, on all samples, 1e-2 with
+random weights and 6e-2 with trained ones. Measured on 1,048,576 samples of
+the mesh field (H100 80GB HBM3, 700 W): kernel vs plain 99.937 % of the
+samples within 5e-3 in rgb and 99.955 % in log1p(sigma), maxima 2.4e-2 and
+4.2e-2 (5.2e-2 on 1,000,003 samples), while the plain version itself lies
+up to 1.6e-2 and 4.4e-2 from the exact (f64) sums of the same products, with
+99.955 % and 99.971 % within 5e-3 (chip_smoke.py phase 4 prints both);
+random fields: rgb 4.9e-3, sigma 2.4e-3. The former sigma rule (2e-3 + 1e-5 relative) held
+only while kernel and plain version summed in one order.
 """
 
 from pathlib import Path
@@ -82,6 +94,55 @@ def test_k1_cuda_matches_plain(octaves, S, R, weights, cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("octaves,weights", [(8, None), (10, "assets/mesh_world/field.npz")])
+def test_k1_bit_equal_under_ray_permutation(octaves, weights, cuda_device):
+    """A ray's result does not depend on the slot of the tile it ran in, nor
+    on the rays beside it: permuting the rays permutes the outputs, bit for bit."""
+    field = _field(octaves, cuda_device) if weights is None else load_distilled(REPO / weights, device=cuda_device)
+    o_g, d_g, tn, tf = _rays(5000, cuda_device)
+    out = fused_mlp.fused_march_render(field, o_g, d_g, tn, tf, 96, 1e-7)
+    perm = torch.as_tensor(np.random.default_rng(11).permutation(5000), device=cuda_device)
+    again = fused_mlp.fused_march_render(field, o_g[perm], d_g[perm], tn[perm], tf[perm], 96, 1e-7)
+    assert float(out["alpha"].max()) > 0.05
+    for k in ("rgb", "alpha", "depth"):
+        assert torch.equal(again[k], out[k][perm]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [1, 64, 777])
+def test_k1_all_rays_missing(R, cuda_device):
+    """No hit ray: zeros everywhere, and the march walks no sample."""
+    field = _field(8, cuda_device)
+    o_g, d_g, tn, _ = _rays(R, cuda_device)
+    out = fused_mlp.fused_march_render(field, o_g, d_g, tn, tn.clone(), 48, 1e-7)
+    torch.cuda.synchronize()
+    assert out["alpha"].shape == (R,) and out["rgb"].shape == (R, 3) and out["depth"].shape == (R,)
+    for k in ("rgb", "alpha", "depth"):
+        assert not out[k].any(), k
+    assert fused_mlp.last_samples_evaluated() == {"hit_rays": 0, "evaluated": 0, "live": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [1, 65, 130, 30011])
+def test_k1_ragged_ray_counts(R, cuda_device):
+    """R not a multiple of a tile's 64 slots, below and above the card's
+    slot count; every ray a hit. The kernel's live samples are R x S while
+    no ray reaches the transmittance cutoff (sigma ~ 0.05 here)."""
+    field = init_distilled(0, octaves=10, device=cuda_device)
+    o_g, d_g, tn, tf = _rays(8 * R, cuda_device)
+    hit = (tf > tn).nonzero()[:R, 0]
+    assert len(hit) == R
+    o_g, d_g, tn, tf = o_g[hit], d_g[hit], tn[hit], tf[hit]
+    out = fused_mlp.fused_march_render(field, o_g, d_g, tn, tf, 24, 1e-7)
+    ref = fused_mlp.march_render_reference(field, o_g, d_g, tn, tf, 24, 1e-7)
+    for k in ("rgb", "alpha", "depth"):
+        torch.testing.assert_close(out[k], ref[k], atol=TOL, rtol=0)
+    counts = fused_mlp.last_samples_evaluated()
+    assert counts["hit_rays"] == R and counts["live"] == 24 * R
+    assert counts["evaluated"] >= counts["live"] and counts["evaluated"] % 64 == 0
+
+
+@pytest.mark.cuda
 def test_k1_wrapper_refuses_bad_input(cuda_device):
     field = _field(8, cuda_device)
     o_g, d_g, tn, tf = _rays(64, cuda_device)
@@ -103,10 +164,20 @@ def _samples(n, device, seed=0):
     return torch.as_tensor(x, device=device), torch.as_tensor(d, device=device)
 
 
+def _assert_k2_close(sigma, rgb, s_ref, c_ref, trained):
+    """The module docstring's rule: 5e-3 on 99.9 % of the samples; on all,
+    1e-2 (random weights) or 6e-2 (trained weights)."""
+    for err in ((rgb - c_ref).abs().amax(dim=0), (torch.log1p(sigma) - torch.log1p(s_ref)).abs()):
+        assert float((err <= TOL).float().mean()) >= 0.999, float(err.max())
+        assert float(err.max()) <= (6e-2 if trained else 1e-2), float(err.max())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("octaves,N,weights", [
     (10, 1000, None), (8, 4096, None), (10, 1, None), (10, 524288, None),
+    (8, 63, None), (10, 65, None), (8, 1_000_003, None),
     (8, 100003, "assets/bench_field.npz"), (10, 100003, "assets/mesh_world/field.npz"),
+    (10, 1_000_003, "assets/mesh_world/field.npz"),
 ])
 def test_k2_cuda_matches_plain(octaves, N, weights, cuda_device):
     """Random fields (``weights`` None) and the shipped trained ones; N
@@ -121,8 +192,7 @@ def test_k2_cuda_matches_plain(octaves, N, weights, cuda_device):
     s_ref, c_ref = fused_mlp.distilled_eval_reference(field, x, d)
     assert sigma.shape == (N,) and rgb.shape == (3, N)
     assert torch.isfinite(sigma).all() and torch.isfinite(rgb).all()
-    torch.testing.assert_close(sigma, s_ref, atol=2e-3, rtol=1e-5)
-    torch.testing.assert_close(rgb, c_ref, atol=5e-3, rtol=0)
+    _assert_k2_close(sigma, rgb, s_ref, c_ref, trained=weights is not None)
 
 
 @pytest.mark.cuda

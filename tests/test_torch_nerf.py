@@ -239,6 +239,100 @@ def test_kernels_not_launched_on_cpu():
     assert before == {k: fused_mlp.launch_count(k) for k in (fused_mlp.K1, fused_mlp.K2)}
 
 
+def _bf16(w):
+    return w.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("weights", [8, 10, "assets/bench_field.npz", "assets/mesh_world/field.npz"])
+def test_pack_weights_reads_back(weights):
+    """The kernels' weight buffer (fused_mlp._pack_weights: column reorder,
+    zero padding, 8x8 core-matrix tiling) read back through its inverse
+    (_unpack_weights) holds the field's bf16-rounded weights, every padding
+    entry exactly zero."""
+    tf = _pair(weights)[1] if isinstance(weights, int) else load_distilled(REPO / weights, device="cpu")
+    octaves, depth, w, b = fused_mlp._pack_weights(tf, torch.device("cpu"))
+    assert (octaves, depth) == (tf.octaves, len(tf.trunk)) and w.dtype == torch.bfloat16 and b.dtype == torch.float32
+    mats = fused_mlp._unpack_weights(w, depth)
+    assert [tuple(m.shape) for m in mats] == fused_mlp._layer_shapes(depth)
+
+    # first layer: [sin a_0, cos a_0, sin a_1, ...,  x, y, z, zeros]
+    n_ang, w1 = 3 * octaves, _bf16(tf.trunk[0]["kernel"])
+    cols = fused_mlp._enc_columns(octaves)
+    assert sorted(c for c in cols if c >= 0) == list(range(3 + 6 * octaves))
+    assert cols[:4] == [3, 3 + n_ang, 4, 4 + n_ang] and cols[2 * n_ang : 2 * n_ang + 3] == [0, 1, 2]
+    for c, src in enumerate(cols):
+        if src >= 0:
+            assert torch.equal(mats[0][:, c], w1[:, src]), c
+    pad = [c for c, src in enumerate(cols) if src < 0]
+    assert len(pad) == 64 - (3 + 6 * octaves) and not mats[0][:, pad].any()
+    # trunk and head as they are
+    for m, p in zip(mats[1:depth + 1], tf.trunk[1:] + [tf.head]):
+        assert torch.equal(m, _bf16(p["kernel"]))
+    # colour 0: a zero column for the raw density, then the field's 31 columns
+    c0 = mats[depth + 1]
+    assert not c0[:, 0].any() and torch.equal(c0[:, 1:], _bf16(tf.color[0]["kernel"])[:, :31])
+    assert torch.equal(mats[depth + 2], _bf16(tf.color[1]["kernel"]))
+    # colour 2: 3 rows padded to 8
+    assert torch.equal(mats[depth + 3][:3], _bf16(tf.color[2]["kernel"])) and not mats[depth + 3][3:].any()
+    # the tiling itself: element (n, k) lies at [k // 8][n // 8][n % 8][k % 8]
+    n, k = 77, 45
+    assert w[(k // 8) * 128 * 8 + (n // 8) * 64 + (n % 8) * 8 + k % 8] == mats[0][n, k]
+    # biases in layer order, the last padded to 8
+    layers = tf.trunk + [tf.head] + tf.color
+    assert torch.equal(b[:-5], torch.cat([p["bias"].reshape(-1) for p in layers])) and not b[-5:].any()
+
+
+@pytest.mark.parametrize("weights", [8, 10, "assets/bench_field.npz", "assets/mesh_world/field.npz"])
+def test_packed_layout_computes_the_field(weights):
+    """The plain version fed through the kernels' matrices and input order
+    (encoding columns [sin, cos pairs, xyz, zeros]; colour input [the head's
+    16 outputs, raw density included, then 16 SH]) computes field_T. With
+    every layer's sums taken in f64 (the exact sum of the bf16 products,
+    rounded to f32 once) both orders give bit-equal sigma and rgb; in f32
+    the packed order stays within an ulp-scale 1e-6 of field_T itself."""
+    from pixtrack_tpu_torch.nerf.field import sh_encoding_deg4_T
+
+    tf = _pair(weights)[1] if isinstance(weights, int) else load_distilled(REPO / weights, device="cpu")
+    octaves, depth, w, b = fused_mlp._pack_weights(tf, torch.device("cpu"))
+    mats = fused_mlp._unpack_weights(w, depth)
+    biases = torch.split(b, [m.shape[0] for m in mats])
+    x, d = (torch.as_tensor(a) for a in _samples(n=500))
+    cols = torch.as_tensor(fused_mlp._enc_columns(octaves))
+
+    def packed(dtype):
+        def dense(i, h):
+            return (mats[i].to(dtype) @ _bf16(h).to(dtype) + biases[i][:, None].to(dtype)).float()
+
+        enc = tf.encode_T(x)
+        h = torch.where((cols >= 0)[:, None], enc[cols.clamp_min(0)], torch.zeros(()))
+        for i in range(depth):
+            h = torch.relu(dense(i, h))
+        head = dense(depth, h)
+        c = torch.cat([head, sh_encoding_deg4_T(d)], dim=0)
+        c = torch.relu(dense(depth + 2, torch.relu(dense(depth + 1, c))))
+        return torch.expm1(torch.nn.functional.softplus(head[0])), torch.sigmoid(dense(depth + 3, c)[:3])
+
+    def field_f64():
+        def dense(p, h):
+            return (_bf16(p["kernel"]).double() @ _bf16(h).double() + p["bias"].double()).float()
+
+        h = tf.encode_T(x)
+        for p in tf.trunk:
+            h = torch.relu(dense(p, h))
+        head = dense(tf.head, h)
+        c = torch.cat([head[1:], sh_encoding_deg4_T(d)], dim=0)
+        c = torch.relu(dense(tf.color[1], torch.relu(dense(tf.color[0], c))))
+        return torch.expm1(torch.nn.functional.softplus(head[0])), torch.sigmoid(dense(tf.color[2], c))
+
+    s64, c64 = packed(torch.float64)
+    s_ref64, c_ref64 = field_f64()
+    assert torch.equal(s64, s_ref64) and torch.equal(c64, c_ref64)
+    s32, c32 = packed(torch.float32)
+    s_ref, c_ref = tf.field_T(x, d)
+    np.testing.assert_allclose(c32.numpy(), c_ref.numpy(), atol=1e-6)
+    np.testing.assert_allclose(s32.numpy(), s_ref.numpy(), atol=1e-6, rtol=1e-6)
+
+
 def test_render_refuses_jittered_samples():
     """Jittered samples (perturb, spp > 1) need a random sampler that is not ported."""
     _, tf = _pair(8)
