@@ -1,7 +1,8 @@
 """Levenberg-Marquardt feature-metric pose alignment.
 
 Port of ``AlignConfig``, ``LevelData``, ``AlignState``, ``residual_cost``,
-``align_level`` and ``align_pyramid`` from ``pixtrack_tpu/align/lm.py``.
+``align_level``, ``align_level_traced`` and ``align_pyramid`` from
+``pixtrack_tpu/align/lm.py``.
 
 The JAX ``lax.while_loop`` becomes a Python loop over the same masked carry:
 once ``done`` is set (or the budget is spent) an iteration changes nothing
@@ -196,6 +197,55 @@ def align_level(T_init: Pose, data: LevelData, camera: Camera, cfg: AlignConfig)
     return AlignState(
         T=T_best, cost=c_best, num_valid=nvalid0, num_iters=i, converged=done, grad_norm=gnorm,
     )
+
+
+def align_level_traced(T_init: Pose, data: LevelData, camera: Camera,
+                       cfg: AlignConfig) -> Tuple[AlignState, dict]:
+    """LM on one level with a per-iteration trace (the DebugTracker's feed):
+    the final state and ``{cost, dt, dR, accepted, active}`` tensors of length
+    ``cfg.num_iters``; entries after the early stop are masked (``active``
+    false, nan values).
+
+    As in the JAX package this is the classic loop: every iteration
+    evaluates the current pose, solves, and evaluates the stepped pose once
+    more to accept or reject it. It stops on a small gradient or a small
+    accepted step, without ``align_level``'s stagnation rule, so the two
+    agree to the convergence tolerance and not to the last bit."""
+    dev = data.p3d.device
+    n = cfg.num_iters
+    lam = torch.tensor(cfg.lambda_init, dtype=torch.float32, device=dev)
+    done = torch.tensor(False, device=dev)
+    _, nv0 = residual_cost(T_init, data, camera, cfg)
+    nv_floor = cfg.min_valid_frac * nv0.float()
+    T = T_init
+    nan = torch.tensor(torch.nan, device=dev)
+    trace = {k: torch.full((n,), torch.nan, device=dev) for k in ("cost", "dt", "dR")}
+    trace.update({k: torch.zeros(n, dtype=torch.bool, device=dev) for k in ("accepted", "active")})
+    for it in range(n):
+        if it % _CHECK_EVERY == 0 and bool(done):
+            break  # the remaining entries stay masked
+        cost, g, H, _ = _evaluate(T, data, camera, cfg, True)
+        delta = _solve(H, g, lam, cfg)
+        T_new = T.retract(delta)
+        new_cost, nv_new = residual_cost(T_new, data, camera, cfg)
+        accept = (new_cost < cost) & (nv_new >= nv_floor) & ~done
+        T = T_new.where(accept, T)
+        lam_next = torch.where(accept, lam * cfg.lambda_down, lam * cfg.lambda_up).clamp(
+            cfg.lambda_min, cfg.lambda_max
+        )
+        lam = torch.where(done, lam, lam_next)
+        dR, dt = Pose.exp(delta).magnitude()
+        small_grad = torch.linalg.norm(g) < cfg.grad_stop_criteria
+        small_step = accept & (dt < cfg.dt_stop_criteria) & (dR < cfg.dR_stop_criteria)
+        for k, v in (("cost", new_cost), ("dt", dt), ("dR", dR)):
+            trace[k][it] = torch.where(done, nan, v)
+        trace["accepted"][it] = accept
+        trace["active"][it] = ~done
+        done = done | small_grad | small_step
+    cost_final, nvalid = residual_cost(T, data, camera, cfg)
+    state = AlignState(T=T, cost=cost_final, num_valid=nvalid, num_iters=trace["active"].sum(),
+                       converged=done, grad_norm=nan)
+    return state, trace
 
 
 def align_pyramid(

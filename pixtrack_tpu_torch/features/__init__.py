@@ -1,4 +1,5 @@
-"""Feature extraction: the UNet feature pyramid for feature-metric alignment."""
+"""Feature extraction: feature pyramids (the UNet's, or the weight-free
+handcrafted one) for feature-metric alignment."""
 
 import os
 from pathlib import Path
@@ -8,6 +9,7 @@ import torch
 
 from pixtrack_tpu_torch._device import resolve
 from pixtrack_tpu_torch.features.extractor import FeatureExtractor
+from pixtrack_tpu_torch.features.handcrafted import HandcraftedExtractor
 from pixtrack_tpu_torch.features.pyramid import FeaturePyramid
 from pixtrack_tpu_torch.features.unet import UNetExtractor, load_unet_weights
 
@@ -24,19 +26,19 @@ def default_unet_weights_path() -> Path:
 def default_extractor(
     resize: Optional[int] = 1024, device=None, dtype: torch.dtype = torch.bfloat16
 ) -> FeatureExtractor:
-    """The production extractor: the shipped UNet. The handcrafted fallback
-    of the JAX package is not ported, so a missing checkpoint raises.
-    ``device`` None is the CUDA card."""
+    """The production extractor: the shipped UNet where its checkpoint is
+    present, else the handcrafted pyramid. ``device`` None is the CUDA card."""
     device = resolve(device)
     path = default_unet_weights_path()
-    if not path.exists():
-        raise FileNotFoundError(f"UNet checkpoint not found: {path}")
-    return FeatureExtractor(load_unet_weights(path, device=device, dtype=dtype), resize=resize)
+    if path.exists():
+        return FeatureExtractor(load_unet_weights(path, device=device, dtype=dtype), resize=resize)
+    return FeatureExtractor(HandcraftedExtractor(device=device), resize=resize)
 
 
 __all__ = [
     "FeaturePyramid",
     "UNetExtractor",
+    "HandcraftedExtractor",
     "FeatureExtractor",
     "default_extractor",
     "default_unet_weights_path",

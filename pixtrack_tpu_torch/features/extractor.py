@@ -1,8 +1,8 @@
 """Feature extractor with the reference's resize policy.
 
 Port of ``pixtrack_tpu/features/extractor.py``: resize so the max edge is at
-most ``resize // image_scale`` (rounded to multiples of 16), run the UNet,
-L2-normalise, and return per-level (sx, sy) scales from original image
+most ``resize // image_scale`` (rounded to multiples of 16), run the model
+(the UNet, or a callable such as ``HandcraftedExtractor``), L2-normalise, and return per-level (sx, sy) scales from original image
 pixels. The downsample is ``F.interpolate(bilinear, antialias=True)``, which
 matches ``jax.image.resize(method="linear")`` (it antialiases too).
 """
@@ -24,7 +24,8 @@ def _round16(x: float) -> int:
 
 
 class FeatureExtractor:
-    """A pyramid model behind one call. ``model`` is a ``UNetExtractor``."""
+    """A pyramid model behind one call. ``model`` is a ``UNetExtractor`` or a
+    callable ``(H, W, 3) -> FeaturePyramid`` with ``.scales`` and ``.device``."""
 
     def __init__(self, model, resize: Optional[int] = 1024, resize_by: str = "max",
                  normalize: bool = True):
@@ -40,7 +41,9 @@ class FeatureExtractor:
 
     @property
     def device(self) -> torch.device:
-        return next(self.model.parameters()).device
+        if isinstance(self.model, torch.nn.Module):
+            return next(self.model.parameters()).device
+        return self.model.device
 
     def _target_hw(self, H: int, W: int, image_scale: int):
         if self.resize is None:
@@ -62,9 +65,13 @@ class FeatureExtractor:
                 antialias=True, align_corners=False,
             )[0].permute(1, 2, 0)
         with torch.no_grad():
-            pred = self.model(img[None])
-        feats = tuple(f[0] for f in pred["feature_maps"])
-        confs = tuple(c[0] for c in pred["confidences"])
+            if isinstance(self.model, torch.nn.Module):
+                pred = self.model(img[None])
+                feats = tuple(f[0] for f in pred["feature_maps"])
+                confs = tuple(c[0] for c in pred["confidences"])
+            else:
+                pyr = self.model(img)
+                feats, confs = pyr.levels, pyr.confidences
         if self.normalize:
             feats = tuple(normalize_features(f) for f in feats)
         return feats, confs

@@ -2,7 +2,9 @@
 
 from pixtrack_tpu_torch.geometry.rotation import (
     geodesic_distance,
+    euler_rotation,
     quat_to_rotmat,
+    rotmat_to_quat,
     so3_exp,
     so3_hat,
     so3_log,
@@ -15,6 +17,8 @@ __all__ = [
     "so3_exp",
     "so3_log",
     "quat_to_rotmat",
+    "rotmat_to_quat",
+    "euler_rotation",
     "geodesic_distance",
     "Pose",
     "Camera",

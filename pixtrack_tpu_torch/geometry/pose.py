@@ -38,6 +38,16 @@ class Pose:
         return cls(R=rot.quat_to_rotmat(_as_tensor(qvec, device)), t=_as_tensor(tvec, device))
 
     @classmethod
+    def from_4x4(cls, T, device=None) -> "Pose":
+        T = _as_tensor(T, device)
+        return cls(R=T[..., :3, :3], t=T[..., :3, 3])
+
+    @classmethod
+    def from_aa_t(cls, w, t, device=None) -> "Pose":
+        """From an axis-angle rotation vector and a translation."""
+        return cls(R=rot.so3_exp(_as_tensor(w, device)), t=_as_tensor(t, device))
+
+    @classmethod
     def exp(cls, delta: torch.Tensor) -> "Pose":
         """First-order se(3) retraction ``R = exp(w), t = v`` of ``(w, v)``."""
         return cls(R=rot.so3_exp(delta[..., :3]), t=delta[..., 3:])

@@ -1,6 +1,6 @@
 """Volume rendering of the distilled field.
 
-Port of the deterministic part of ``pixtrack_tpu/nerf/render.py``. Spaces:
+Port of ``pixtrack_tpu/nerf/render.py`` for the distilled field. Spaces:
 the field lives in grid space [0, 1]^3; rays are built from NeRF-space
 OpenGL cameras; ``t`` and depth stay in NeRF units.
 
@@ -8,9 +8,14 @@ OpenGL cameras; ``t`` and depth stay in NeRF units.
 its plain version on a CPU tensor:
 - coarse only (``n_fine == 0``): K1, ``fused_march_render``, the whole ray
   in one launch;
-- with an importance pass: the staged render (JAX render.py:272-338),
-  whose field evaluations go through K2, ``fused_distilled_eval``.
-Jittered samples (``perturb``) need a random sampler, which is not ported.
+- with an importance pass, or with jittered samples: the staged render
+  (JAX render.py:272-338), whose field evaluations go through K2,
+  ``fused_distilled_eval``.
+Jitter is drawn on the rays' device from a ``torch.Generator`` the caller
+seeds (the counterpart of the JAX ``key``): with a generator the importance
+pass draws its ``u`` at random, and with ``cfg.perturb`` as well the coarse
+samples are jittered inside their strata. ``jax.random``'s bits cannot be
+reproduced, so the samplers also take the noise itself (``noise``, ``u``).
 """
 
 from __future__ import annotations
@@ -100,24 +105,29 @@ def _sample_stratified(t_near, t_far, n: int):
     return t_near[:, None] + i[None, :] * dt[:, None]
 
 
-def _sample_grid(t_near, t_far, n: int):
-    """(R,) bounds -> (R, n) deterministic strata in the staged render's
-    form: ``t_near + (t_far - t_near) * u`` with ``u`` the bin lefts of
-    ``linspace(0, 1, n + 1)`` plus ``0.5 / n``. (torch's and JAX's linspace
-    differ in the last bit of some values.)"""
-    u = torch.linspace(0.0, 1.0, n + 1, device=t_near.device)[:-1] + 0.5 / n
+def _sample_grid(t_near, t_far, n: int, noise: Optional[torch.Tensor] = None):
+    """(R,) bounds -> (R, n) strata in the staged render's form (the JAX
+    ``_sample_stratified``): ``t_near + (t_far - t_near) * u`` with ``u`` the
+    bin lefts of ``linspace(0, 1, n + 1)`` plus ``0.5 / n``, or plus
+    ``noise / n`` for uniform ``noise`` (R, n) in [0, 1). (torch's and JAX's
+    linspace differ in the last bit of some values.)"""
+    u = torch.linspace(0.0, 1.0, n + 1, device=t_near.device)[:-1]
+    u = u + 0.5 / n if noise is None else u + noise / n
     return t_near[:, None] + (t_far - t_near)[:, None] * u
 
 
-def _sample_importance(t_mid, weights, t_near, t_far, n: int):
-    """Deterministic inverse-CDF resampling from coarse weights.
-    t_mid, weights (R, S) -> (R, n) sample ts, at ``u = linspace(0.01, 0.99, n)``."""
+def _sample_importance(t_mid, weights, t_near, t_far, n: int, u: Optional[torch.Tensor] = None):
+    """Inverse-CDF resampling from coarse weights. t_mid, weights (R, S) ->
+    (R, n) sample ts, at ``u = linspace(0.01, 0.99, n)`` or at the uniform
+    ``u`` (R, n) given."""
     w = weights + 1e-5
     cdf = torch.cumsum(w, dim=-1)
     cdf = cdf / cdf[:, -1:]
     cdf = torch.cat([torch.zeros_like(cdf[:, :1]), cdf], dim=-1)  # (R, S+1)
     R, S = weights.shape
-    u = torch.linspace(0.01, 0.99, n, device=weights.device).expand(R, n).contiguous()
+    if u is None:
+        u = torch.linspace(0.01, 0.99, n, device=weights.device).expand(R, n)
+    u = u.contiguous()
     # right=True counts the cdf entries <= u, as JAX's dense comparison does
     idx = torch.searchsorted(cdf, u, right=True).clamp(1, S)
     below = idx - 1
@@ -195,12 +205,24 @@ def march_rays(origins_nerf, dirs_nerf, aabb, sphere: Optional[torch.Tensor] = N
     return o_g, d_g, t_near, torch.where(hit, t_far, t_near)
 
 
-def _render_staged(field: DistilledField, o_g, d_g, t_near, t_far, cfg: RenderConfig):
+def _draw_noise(n_rays: int, cfg: RenderConfig, generator: Optional[torch.Generator], device):
+    """The staged render's noise for one chunk of rays, drawn on the device:
+    (coarse jitter (R, n_coarse) or None, importance u (R, n_fine) or None)."""
+    if generator is None:
+        return None, None
+    noise = torch.rand(n_rays, cfg.n_coarse, generator=generator, device=device) if cfg.perturb else None
+    u = torch.rand(n_rays, cfg.n_fine, generator=generator, device=device) if cfg.n_fine > 0 else None
+    return noise, u
+
+
+def _render_staged(field: DistilledField, o_g, d_g, t_near, t_far, cfg: RenderConfig, noise=(None, None)):
     """The staged render of grid-space rays (a miss has t_far == t_near):
     stratified coarse samples, their weights, importance samples, every
-    field evaluation through K2, the stable co-sort and compositing."""
+    field evaluation through K2, the stable co-sort and compositing.
+    ``noise`` is ``_draw_noise``'s pair; (None, None) is the deterministic
+    render."""
     hit = t_far > t_near
-    ts = _sample_grid(t_near, t_far, cfg.n_coarse)
+    ts = _sample_grid(t_near, t_far, cfg.n_coarse, noise[0])
     oT, dT = o_g.T, d_g.T
     dnT = dT / torch.linalg.norm(dT, dim=0, keepdim=True).clamp_min(1e-9)
 
@@ -212,13 +234,15 @@ def _render_staged(field: DistilledField, o_g, d_g, t_near, t_far, cfg: RenderCo
         return sigma.reshape(R, S), rgbT.reshape(3, R, S)
 
     sigma_c, rgb_c = eval_field(ts)
+    if cfg.n_fine == 0:
+        return _composite(sigma_c, rgb_c, ts, t_far, hit, cfg.min_transmittance, cfg.density_scale)
     # coarse weights; the last delta repeats the one before it
     deltas = torch.diff(ts, dim=-1)
     deltas = torch.cat([deltas, deltas[:, -1:]], dim=-1)
     alpha_c = 1.0 - torch.exp(-sigma_c * cfg.density_scale * deltas)
     trans_c = torch.cumprod(1.0 - alpha_c + 1e-10, dim=-1)
     trans_c = torch.cat([torch.ones_like(trans_c[:, :1]), trans_c[:, :-1]], dim=-1)
-    ts_f = _sample_importance(ts, alpha_c * trans_c, t_near, t_far, cfg.n_fine)
+    ts_f = _sample_importance(ts, alpha_c * trans_c, t_near, t_far, cfg.n_fine, noise[1])
     # the field is deterministic: the coarse samples' values are reused
     sigma_f, rgb_f = eval_field(ts_f)
     # a stable sort, as jax.lax.sort: a coarse sample stays before a fine tie
@@ -230,24 +254,23 @@ def _render_staged(field: DistilledField, o_g, d_g, t_near, t_far, cfg: RenderCo
 
 def render_rays(
     field: DistilledField, origins_nerf, dirs_nerf, aabb, cfg: RenderConfig,
-    sphere: Optional[torch.Tensor] = None,
+    sphere: Optional[torch.Tensor] = None, generator: Optional[torch.Generator] = None,
 ):
-    """Render NeRF-space rays: through K1 when ``cfg.n_fine == 0``, else
-    through the staged render and K2, ``cfg.chunk`` rays at a time.
+    """Render NeRF-space rays: through K1 when ``cfg.n_fine == 0`` and the
+    samples are not jittered (``cfg.perturb`` with a ``generator``), else
+    through the staged render and K2, ``cfg.chunk`` rays at a time, each
+    chunk drawing its noise from ``generator`` in turn.
     Returns dict(rgb, alpha, depth)."""
     if not isinstance(field, DistilledField):
         raise NotImplementedError("only the distilled field renders in the port so far")
-    if cfg.perturb:
-        raise NotImplementedError(
-            "jittered samples need a random sampler on the device, which is not ported yet"
-        )
     o_g, d_g, t_near, t_far = march_rays(origins_nerf, dirs_nerf, aabb, sphere)
-    if cfg.n_fine == 0:
+    if cfg.n_fine == 0 and not (cfg.perturb and generator is not None):
         return fused_march_render(field, o_g, d_g, t_near, t_far, cfg.n_coarse,
                                   cfg.min_transmittance, cfg.density_scale)
     parts = [
         _render_staged(field, o_g[s : s + cfg.chunk], d_g[s : s + cfg.chunk],
-                       t_near[s : s + cfg.chunk], t_far[s : s + cfg.chunk], cfg)
+                       t_near[s : s + cfg.chunk], t_far[s : s + cfg.chunk], cfg,
+                       _draw_noise(min(cfg.chunk, o_g.shape[0] - s), cfg, generator, o_g.device))
         for s in range(0, o_g.shape[0], cfg.chunk)
     ]
     rgb, alpha, depth = (torch.cat(p) for p in zip(*parts))
@@ -257,11 +280,11 @@ def render_rays(
 def render_image(
     field: DistilledField, c2w_nerf, fx, fy, cx, cy, width: int, height: int,
     aabb, cfg: RenderConfig, background=(1.0, 1.0, 1.0),
-    sphere: Optional[torch.Tensor] = None,
+    sphere: Optional[torch.Tensor] = None, generator: Optional[torch.Generator] = None,
 ):
     """Full-image render: dict(rgba (H, W, 4), depth (H, W))."""
     origins, dirs = rays_from_camera(c2w_nerf, fx, fy, cx, cy, width, height)
-    out = render_rays(field, origins, dirs, aabb, cfg, sphere=sphere)
+    out = render_rays(field, origins, dirs, aabb, cfg, sphere=sphere, generator=generator)
     rgb = out["rgb"].reshape(height, width, 3)
     alpha = out["alpha"].reshape(height, width)
     bg = torch.as_tensor(background, dtype=torch.float32, device=rgb.device)

@@ -3,10 +3,10 @@
 Port of the parts of ``pixtrack_tpu/nerf/testbed.py`` the tracker uses:
 install a distilled field (``set_baked_field``), the render crop
 (``render_aabb``), exact intrinsics (``override_intrinsics``), occupied-bounds
-tightening and a one-sample-per-pixel Shade/Depth ``render`` at the
-defaults of 64 coarse and 32 importance samples per ray (K2), or coarse
-only (K1) when ``n_fine`` is 0. Hash-grid snapshots, baking and jittered
-``spp > 1`` renders are not ported.
+tightening and a Shade/Depth ``render`` at the defaults of 64 coarse and 32
+importance samples per ray (K2), or coarse only (K1) when ``n_fine`` is 0;
+``spp > 1`` is the mean of ``spp`` jittered renders (always K2). Hash-grid
+snapshots and baking are not ported.
 """
 
 from __future__ import annotations
@@ -95,24 +95,31 @@ class Testbed:
         f = ((width if self.fov_axis == 0 else height) / 2.0) / np.tan(half_angle)
         return f, f, (width - 1) / 2.0, (height - 1) / 2.0
 
-    def render(self, width: int, height: int, spp: int = 1, linear: bool = True) -> np.ndarray:
+    def render(self, width: int, height: int, spp: int = 1, linear: bool = True, seed: int = 0) -> np.ndarray:
         """(H, W, 4) float32; Depth mode puts NeRF-unit depth in the RGB
-        channels. One deterministic sample per pixel."""
-        if spp != 1:
-            raise NotImplementedError(
-                "spp > 1 averages jittered renders, which need a random sampler on the device (not ported yet)"
-            )
+        channels. ``spp == 1`` is one deterministic sample per pixel;
+        ``spp > 1`` is the mean of ``spp`` jittered renders, each drawing
+        from its own device generator split from ``seed``."""
         if self._baked is None:
             raise RuntimeError("no field loaded")
         dev = self.device
         cfg = RenderConfig(n_coarse=self.n_coarse, n_fine=self.n_fine,
-                           min_transmittance=float(self.nerf.rendering_min_transmittance))
+                           min_transmittance=float(self.nerf.rendering_min_transmittance), perturb=spp > 1)
         aabb = torch.as_tensor([self.render_aabb.min, self.render_aabb.max], dtype=torch.float32, device=dev)
         sphere = None if self._sphere is None else torch.as_tensor(self._sphere, dtype=torch.float32, device=dev)
         c2w = torch.as_tensor(self._camera, dtype=torch.float32, device=dev)
+
+        def one(generator):
+            return render_image(self._baked, c2w, *self._intrinsics(width, height), width, height, aabb, cfg,
+                                background=tuple(self.background_color[:3]), sphere=sphere, generator=generator)
+
         with torch.no_grad():
-            out = render_image(self._baked, c2w, *self._intrinsics(width, height), width, height, aabb, cfg,
-                               background=tuple(self.background_color[:3]), sphere=sphere)
+            if spp > 1:
+                seeds = torch.randint(2**62, (spp,), generator=torch.Generator().manual_seed(int(seed)))
+                outs = [one(torch.Generator(device=dev).manual_seed(int(s))) for s in seeds]
+                out = {k: torch.stack([o[k] for o in outs]).mean(dim=0) for k in outs[0]}
+            else:
+                out = one(None)
         rgba = out["rgba"].cpu().numpy()
         if self.render_mode == RenderMode.Depth:
             depth = out["depth"].cpu().numpy()

@@ -1,8 +1,10 @@
 """Refiner: feature-metric pose refinement against reference observations.
 
-Port of ``Refiner.select_points``, ``extract_reference_set``,
-``_observe_reference`` and ``refine`` (multiscale), and of
-``infer_camera_from_image``, from ``pixtrack_tpu/tracking/refiner.py``.
+Port of ``pixtrack_tpu/tracking/refiner.py``: ``Refiner.select_points``,
+``extract_reference_features``, ``extract_reference_set``, ``refine``
+(multiscale), the optional ``DebugTracker`` hook (``attach_tracker``; with
+none attached ``refine`` runs ``align_pyramid`` as it always did), and
+``infer_camera_from_image``.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ import numpy as np
 import torch
 
 from pixtrack_tpu_torch.align.interpolate import interpolate_scalar
-from pixtrack_tpu_torch.align.lm import AlignConfig, align_pyramid
+from pixtrack_tpu_torch.align.lm import AlignConfig, align_level_traced, align_pyramid
 from pixtrack_tpu_torch.align.observations import build_level_data, observe_points
 from pixtrack_tpu_torch.geometry import Camera, Pose
 from pixtrack_tpu_torch.tracking.mask import erode
@@ -65,6 +67,12 @@ class Refiner:
         self.min_points_opt = min_points_opt
         self.min_track_length = min_track_length
         self.pad_multiple = pad_multiple
+        self.tracker = None  # optional DebugTracker, see attach_tracker
+
+    def attach_tracker(self, tracker) -> None:
+        """Attach a DebugTracker; refinement then records per-iteration
+        optimizer traces (and dense maps at debug >= 2)."""
+        self.tracker = tracker
 
     @property
     def device(self) -> torch.device:
@@ -76,14 +84,22 @@ class Refiner:
         xyz, mask = self.scene.pack_points(idx, pad_multiple=self.pad_multiple)
         return torch.as_tensor(xyz, device=self.device), torch.as_tensor(mask, device=self.device)
 
+    def extract_reference_features(self, ref_ids, pose_w2c: Pose, ref_image, ref_camera: Camera,
+                                   ref_alpha=None, interior_erode: int = 7) -> ReferenceFeatures:
+        """Observe the points of ``ref_ids`` in a reference view (a stored
+        image, or a render at ``pose_w2c`` with ``ref_camera``). With
+        ``ref_alpha`` the observations are weighted by the eroded silhouette
+        interior, which keeps the background edge out of the descriptors."""
+        p3d, mask = self.select_points(ref_ids)
+        pyr = self.extractor(ref_image)
+        interior = self._interior_map(ref_alpha, interior_erode)
+        return self._observe_reference(pyr, interior, p3d, mask, pose_w2c, ref_camera, list(ref_ids))
+
     def extract_reference_set(self, ref_ids, pose_w2c: Pose, ref_image, ref_camera: Camera,
                               ref_alpha=None, interior_erode: int = 7) -> ReferenceSet:
         """Observation packs of each reference id's own points in ONE render."""
         pyr = self.extractor(ref_image)
-        interior = None
-        if ref_alpha is not None and interior_erode > 0:
-            alpha = torch.as_tensor(np.asarray(ref_alpha), device=self.device)
-            interior = erode((alpha > 0.5).float(), size=interior_erode)
+        interior = self._interior_map(ref_alpha, interior_erode)
         per_ref = {}
         for rid in ref_ids:
             p3d, mask = self.select_points([rid])
@@ -91,6 +107,12 @@ class Refiner:
                 pyr, interior, p3d, mask, pose_w2c, ref_camera, [int(rid)]
             )
         return ReferenceSet(pose=pose_w2c, ref_ids=[int(r) for r in ref_ids], per_ref=per_ref)
+
+    def _interior_map(self, ref_alpha, interior_erode: int):
+        if ref_alpha is None or interior_erode <= 0:
+            return None
+        alpha = torch.as_tensor(np.asarray(ref_alpha), device=self.device)
+        return erode((alpha > 0.5).float(), size=interior_erode)
 
     def _observe_reference(self, pyr, interior, p3d, mask, pose_w2c, ref_camera, ref_ids):
         feats, weights, valids = observe_points(pyr, pose_w2c, ref_camera, p3d, mask)
@@ -108,6 +130,7 @@ class Refiner:
         if int(ref_feats.mask.sum()) < self.min_points_opt:
             return RefineResult(success=False, T_init=T_init, T_refined=T_init,
                                 cost=float("inf"), num_valid=0, num_iters=0)
+        debug = self.tracker is not None and self.tracker.debug >= 1
         T = T_init
         costs = []
         last = None
@@ -115,13 +138,31 @@ class Refiner:
             pyr = self.extractor(query_image, image_scale=int(image_scale))
             levels = build_level_data(pyr, ref_feats.feats, ref_feats.weights,
                                       ref_feats.valids, ref_feats.p3d, ref_feats.mask)
-            last, _ = align_pyramid(T, levels, camera, self.align_cfg)
+            if debug:
+                last = self._refine_traced(T, levels, camera)
+            else:
+                last, _ = align_pyramid(T, levels, camera, self.align_cfg)
             T = last.T
             costs.append(float(last.cost))
+        if debug:
+            self.tracker.log_optim_done(T, p3d=ref_feats.p3d, cost=costs[-1])
         ok = bool(np.isfinite(costs[-1])) and int(last.num_valid) >= self.min_points_opt
         return RefineResult(success=ok, T_init=T_init, T_refined=T, cost=costs[-1],
                             num_valid=int(last.num_valid), num_iters=int(last.num_iters),
                             costs_per_scale=costs)
+
+
+    def _refine_traced(self, T, levels, camera):
+        """Coarse-to-fine with per-iteration traces fed to the attached
+        DebugTracker (``align_level_traced`` per level)."""
+        for li, data in enumerate(reversed(levels)):
+            st, trace = align_level_traced(T, data, camera, self.align_cfg)
+            level_idx = len(levels) - 1 - li
+            self.tracker.log_optim_iter(level_idx, trace)
+            if self.tracker.debug >= 2:
+                self.tracker.log_dense(level_idx, data.fmap, data.conf)
+            T = st.T
+        return st
 
 
 def infer_camera_from_image(image_or_shape, focal_factor: float = 1.2, device=None) -> Camera:

@@ -7,8 +7,9 @@ samples, K2), ``relocalize``, ``update_reference_ids``,
 ``get_dynamic_reference``, ``get_mask`` (point splat, or the reference's
 NeRF-depth render eroded and dilated), best-of-K ``refine``, the stepwise
 video loop of ``PoseTracker`` (``run``, ``run_single_frame``),
-``run_fused``, ``save_poses`` and ``stats``. The tracker variants are not
-ported yet.
+``run_fused``, ``save_poses`` and ``stats``. The older variants (r1-r8, roll
+tracking) are in ``tracking/variants.py``, the YCB evaluation tracker in
+``tracking/tracker_ycb.py``.
 """
 
 from __future__ import annotations

@@ -1,10 +1,16 @@
 """Parity of the PyTorch alignment port (interpolation, observations, LM)
 with the JAX package on the CPU.
 
-Tolerances: interpolation and observations 1e-5 (the same f32 arithmetic);
-the LM on a smooth synthetic problem must take the same number of
-iterations and land within 1e-3 degrees and 1e-5 in translation, with the
-cost within 1e-3 relative.
+Tolerances: interpolation and observations 1e-5 (the same f32 arithmetic;
+the corner-packed form 1e-6 against JAX's and exactly the four-gather
+form's numbers); the LM on a smooth synthetic problem must take the same
+number of iterations and land within 1e-3 degrees and 1e-5 in translation,
+with the cost within 1e-3 relative. The traced LM (the classic
+evaluate-step-evaluate loop of both packages) is held to the same state
+tolerances against JAX's, its per-iteration trace to 1e-3 relative on the
+costs and on the steps (plus 1e-5: dR is an arccos of an f32 trace), and its final pose to the deferred-accept
+``align_level``'s within 0.02 deg and 2e-4: the two loops stop by different
+rules, so they agree to the convergence tolerance, not to the last bit.
 """
 
 import jax.numpy as jnp
@@ -14,16 +20,19 @@ import torch
 from scipy.ndimage import gaussian_filter
 
 from pixtrack_tpu.align.interpolate import interpolate_features as j_interp
+from pixtrack_tpu.align.interpolate import interpolate_packed as j_interp_packed
+from pixtrack_tpu.align.interpolate import pack_fmap as j_pack_fmap
 from pixtrack_tpu.align.lm import AlignConfig as JAlignConfig
 from pixtrack_tpu.align.lm import LevelData as JLevelData
 from pixtrack_tpu.align.lm import align_level as j_align_level
+from pixtrack_tpu.align.lm import align_level_traced as j_align_level_traced
 from pixtrack_tpu.align.lm import align_pyramid as j_align_pyramid
 from pixtrack_tpu.align.observations import observe_points as j_observe
 from pixtrack_tpu.features.pyramid import FeaturePyramid as JPyramid
 from pixtrack_tpu.geometry import Camera as JCamera
 from pixtrack_tpu.geometry import Pose as JPose
-from pixtrack_tpu_torch.align.interpolate import interpolate_features
-from pixtrack_tpu_torch.align.lm import AlignConfig, LevelData, align_level, align_pyramid
+from pixtrack_tpu_torch.align.interpolate import interpolate_features, interpolate_packed, pack_fmap
+from pixtrack_tpu_torch.align.lm import AlignConfig, LevelData, align_level, align_level_traced, align_pyramid
 from pixtrack_tpu_torch.align.observations import observe_points
 from pixtrack_tpu_torch.features.pyramid import FeaturePyramid
 from pixtrack_tpu_torch.geometry import Camera, Pose
@@ -146,3 +155,61 @@ def test_observe_points_matches():
     for aj, at in zip(oj, ot):
         for a, b in zip(aj, at):
             np.testing.assert_allclose(np.asarray(a, np.float32), b.float().numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("compute_grad", [True, False])
+def test_pack_fmap_and_interpolate_packed(compute_grad):
+    """The corner-packed pair against JAX's pair (1e-6) and against the
+    port's four-gather form (the same numbers), points off the map included."""
+    rng = np.random.default_rng(5)
+    fmap = rng.normal(size=(20, 30, 5)).astype(np.float32)
+    pts = rng.uniform(-2, 32, size=(300, 2)).astype(np.float32)
+    pj, pt = j_pack_fmap(jnp.asarray(fmap)), pack_fmap(_t(fmap))
+    assert tuple(pt.shape) == (20, 30, 20)
+    np.testing.assert_array_equal(np.asarray(pj), pt.numpy())
+    vj, gj, okj = j_interp_packed(pj, jnp.asarray(pts), compute_grad=compute_grad)
+    vt, gt, okt = interpolate_packed(pt, _t(pts), compute_grad=compute_grad)
+    np.testing.assert_array_equal(np.asarray(okj), okt.numpy())
+    np.testing.assert_allclose(np.asarray(vj), vt.numpy(), atol=1e-6)
+    np.testing.assert_allclose(np.asarray(gj), gt.numpy(), atol=1e-6)
+    v4, g4, ok4 = interpolate_features(_t(fmap), _t(pts), compute_grad=compute_grad)
+    ok = ok4.numpy()
+    assert 0 < ok.sum() < len(ok)
+    np.testing.assert_array_equal(ok, okt.numpy())
+    np.testing.assert_array_equal(v4.numpy()[ok], vt.numpy()[ok])
+    np.testing.assert_array_equal(g4.numpy()[ok], gt.numpy()[ok])
+
+
+@pytest.mark.parametrize("with_conf", [False, True])
+def test_align_level_traced_matches(with_conf):
+    prob = _problem(1, with_conf=with_conf)
+    cam = prob[0]
+    jl, tl = _levels(prob)
+    eye, zero = np.eye(3, dtype=np.float32), np.zeros(3, np.float32)
+    n_it = 40
+    sj, trj = j_align_level_traced(JPose.from_Rt(eye, zero), jl, JCamera.pinhole(*cam), JAlignConfig(num_iters=n_it))
+    st, trt = align_level_traced(Pose.from_Rt(eye, zero), tl, Camera.pinhole(*cam), AlignConfig(num_iters=n_it))
+    _check_state(sj, st)
+    assert set(trt) == {"cost", "dt", "dR", "accepted", "active"}
+    active = np.asarray(trj["active"])
+    assert all(tuple(v.shape) == (n_it,) for v in trt.values())
+    assert 1 <= active.sum() < n_it  # it stopped early: the tail is masked
+    np.testing.assert_array_equal(active, trt["active"].numpy())
+    # the last active iteration steps by ~1e-7 at the optimum, where f32
+    # rounding decides whether its cost is lower: its flag is not compared
+    last = int(active.sum()) - 1
+    np.testing.assert_array_equal(np.delete(np.asarray(trj["accepted"]), last),
+                                  np.delete(trt["accepted"].numpy(), last))
+    for k, tol in (("cost", dict(rtol=1e-3)), ("dt", dict(rtol=1e-3, atol=1e-5)), ("dR", dict(rtol=1e-3, atol=1e-5))):
+        a, b = np.asarray(trj[k]), trt[k].numpy()
+        np.testing.assert_array_equal(np.isnan(a), np.isnan(b))
+        assert np.isnan(b[~active]).all()
+        np.testing.assert_allclose(a[active], b[active], **tol)
+    # the accepted costs do not increase
+    acc = trt["cost"].numpy()[trt["accepted"].numpy()]
+    assert (np.diff(acc) <= 1e-7).all()
+    # the deferred-accept loop from the same start lands at the same optimum
+    s2 = align_level(Pose.from_Rt(eye, zero), tl, Camera.pinhole(*cam), AlignConfig(num_iters=60))
+    dR, dt = (st.T @ s2.T.inv()).magnitude()
+    assert float(dR) < 0.02 and float(dt) < 2e-4, (float(dR), float(dt))
+    np.testing.assert_allclose(float(st.cost), float(s2.cost), rtol=1e-3)

@@ -236,3 +236,66 @@ def test_k2_wrapper_refuses_bad_input(cuda_device):
     narrow.head["kernel"] = narrow.head["kernel"][:8]
     with pytest.raises(ValueError):
         fused_mlp.fused_distilled_eval(narrow, x, d)
+
+
+def _mesh_testbed(device):
+    """The Testbed over the trained mesh-world field at the upright-ish view
+    chip_smoke.py renders, 64 + 32 samples per ray."""
+    import json
+
+    from pixtrack_tpu_torch.nerf.testbed import Testbed
+
+    meta = json.loads((REPO / "assets/mesh_world/meta.json").read_text())
+    tb = Testbed(device=device)
+    tb.set_baked_field(load_distilled(REPO / "assets/mesh_world/field.npz", device=device))
+    tb.render_aabb.min = [float(v) for v in meta["aabb"][0]]
+    tb.render_aabb.max = [float(v) for v in meta["aabb"][1]]
+    tb.tighten_render_bounds(res=48)
+    c2w = np.eye(4)
+    c2w[:3, 3] = [0.0, 0.2, 1.9]
+    tb.set_nerf_camera_matrix(c2w[:3])
+    tb.override_intrinsics = (225.0, 225.0, 111.5, 111.5)
+    return tb
+
+
+@pytest.mark.cuda
+def test_jittered_render_launches_k2_only_and_is_deterministic(cuda_device):
+    """A jittered 224x224 render (spp = 2) goes through K2 and never K1,
+    also when coarse only (a jittered render is not eligible for K1), and
+    the same seed gives the same image bit for bit."""
+    tb = _mesh_testbed(cuda_device)
+    for n_coarse, n_fine in ((64, 32), (96, 0)):
+        tb.n_coarse, tb.n_fine = n_coarse, n_fine
+        fused_mlp.reset_launch_counts()
+        a = tb.render(224, 224, spp=2, seed=3)
+        assert fused_mlp.launch_count(fused_mlp.K2) > 0 and fused_mlp.launch_count(fused_mlp.K1) == 0
+        assert a.shape == (224, 224, 4) and np.isfinite(a).all() and a[..., 3].max() > 0.9
+        assert np.array_equal(a, tb.render(224, 224, spp=2, seed=3))
+        assert not np.array_equal(a, tb.render(224, 224, spp=2, seed=4))
+    # spp == 1, coarse only, stays K1's
+    fused_mlp.reset_launch_counts()
+    tb.render(224, 224, spp=1)
+    assert fused_mlp.launch_count(fused_mlp.K1) == 1 and fused_mlp.launch_count(fused_mlp.K2) == 0
+
+
+@pytest.mark.cuda
+def test_make_tracker_r6_launches_k1(cuda_device):
+    """r6 renders every reference at its SfM image's own pose through the
+    Testbed with fast_render: K1, once per distinct reference (memoized)."""
+    from pixtrack_tpu_torch.align.lm import AlignConfig
+    from pixtrack_tpu_torch.features import default_extractor
+    from pixtrack_tpu_torch.geometry import nerf_transform
+    from pixtrack_tpu_torch.sfm.scene import SceneModel
+    from pixtrack_tpu_torch.tracking.variants import make_tracker_r6
+
+    mw = REPO / "assets" / "mesh_world"
+    scene = SceneModel.load(mw / "aug_sfm")
+    tracker = make_tracker_r6(scene, default_extractor(device=cuda_device), _mesh_testbed(cuda_device),
+                              nerf_transform.NerfTransform.load(mw / "nerf2sfm.pkl"),
+                              align_cfg=AlignConfig(num_iters=5))
+    assert (tracker.testbed.n_coarse, tracker.testbed.n_fine) == (96, 0)
+    fused_mlp.reset_launch_counts()
+    ids = [int(i) for i in scene.image_ids[:2]]
+    refs = [tracker.static_reference(i) for i in ids + ids]  # the second pass is served from memory
+    assert fused_mlp.launch_count(fused_mlp.K1) == 2 and fused_mlp.launch_count(fused_mlp.K2) == 0
+    assert refs[0] is refs[2] and refs[0].feats[0].is_cuda and len(refs[0].feats) == 3

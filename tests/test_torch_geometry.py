@@ -101,3 +101,54 @@ def test_camera_projection(model, params):
     T = JPose.from_quat_t([1.0, 0.1, 0.0, 0.0], [0.0, 0.0, 0.2])
     Tt = Pose.from_quat_t([1.0, 0.1, 0.0, 0.0], [0.0, 0.0, 0.2])
     _close(cj.world2image(T, jnp.asarray(p))[0], ct.world2image(Tt, _t(p))[0], atol=1e-3)
+
+
+def _random_rotations(n, seed):
+    rng = np.random.default_rng(seed)
+    R = np.asarray(jrot.so3_exp(jnp.asarray(rng.normal(size=(n, 3)).astype(np.float32) * 1.5)))
+    # rotations by pi about each axis and about a diagonal: the trace branch loses, the others decide
+    half_turns = [np.diag(d).astype(np.float32) for d in ([1, -1, -1], [-1, 1, -1], [-1, -1, 1])]
+    return np.concatenate([R, np.stack(half_turns), np.eye(3, dtype=np.float32)[None]])
+
+
+def test_rotmat_to_quat_matches():
+    """The (w, x, y, z) order and the w >= 0 sign of the JAX function, every
+    Shepperd branch taken; 1e-6."""
+    R = _random_rotations(64, 5)
+    qj = np.asarray(jrot.rotmat_to_quat(jnp.asarray(R)))
+    qt = trot.rotmat_to_quat(_t(R))
+    branches = np.argmax(np.stack([1 + R[:, 0, 0] + R[:, 1, 1] + R[:, 2, 2], 1 + R[:, 0, 0] - R[:, 1, 1] - R[:, 2, 2],
+                                   1 - R[:, 0, 0] + R[:, 1, 1] - R[:, 2, 2], 1 - R[:, 0, 0] - R[:, 1, 1] + R[:, 2, 2]],
+                                  -1), -1)
+    assert set(branches.tolist()) == {0, 1, 2, 3}
+    _close(qj, qt, atol=1e-6)
+    assert bool((qt[:, 0] >= 0).all())
+    # and back: the round trip through quat_to_rotmat
+    _close(R, trot.quat_to_rotmat(qt), atol=1e-5)
+    # one matrix, no batch axis
+    _close(np.asarray(jrot.rotmat_to_quat(jnp.asarray(R[3]))), trot.rotmat_to_quat(_t(R[3])), atol=1e-6)
+
+
+@pytest.mark.parametrize("angles,degrees", [((30.0, -20.0, 75.0), True), ((0.3, 1.2, -2.0), False), ((0.0, 0.0, 0.0), True)])
+def test_euler_rotation_matches(angles, degrees):
+    """Rz @ Ry @ Rx; 1e-6."""
+    Rj = jrot.euler_rotation(*angles, degrees=degrees)
+    Rt = trot.euler_rotation(*angles, degrees=degrees)
+    assert Rt.dtype == torch.float32 and Rt.shape == (3, 3)
+    _close(Rj, Rt, atol=1e-6)
+
+
+def test_pose_from_4x4_and_from_aa_t_match():
+    rng = np.random.default_rng(6)
+    w, t = rng.normal(size=(5, 3)).astype(np.float32), rng.normal(size=(5, 3)).astype(np.float32)
+    pj, pt = JPose.from_aa_t(w, t), Pose.from_aa_t(w, t)
+    _close(pj.R, pt.R)
+    _close(pj.t, pt.t)
+    T = np.asarray(pj.to_4x4())
+    qj, qt = JPose.from_4x4(T), Pose.from_4x4(T)
+    _close(qj.R, qt.R, atol=0)
+    _close(qj.t, qt.t, atol=0)
+    # a tensor is taken as it is, a single matrix too
+    one = Pose.from_4x4(torch.as_tensor(T[2].copy()))
+    assert one.R.shape == (3, 3) and one.t.shape == (3,)
+    _close(T[2, :3, 3], one.t, atol=0)

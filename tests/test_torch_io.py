@@ -165,3 +165,67 @@ def test_port_imports_no_jax():
             words = line.split()
             if words[:1] in (["import"], ["from"]) and len(words) > 1:
                 assert words[1].split(".")[0] not in ("jax", "flax", "tqdm", "pixtrack_tpu"), (src, line)
+
+
+_FORBIDDEN = ("jax", "jaxlib", "flax", "pixtrack_tpu", "tests")
+_LAZY_ONLY = ("cv2", "h5py", "yaml", "PIL", "imageio", "matplotlib", "tqdm")
+
+
+def _imports(tree):
+    """(top-level name, is at module level) of every import in a parsed file."""
+    import ast
+
+    top_level = {id(n) for n in tree.body}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module]
+        else:
+            continue
+        for name in names:
+            yield name.split(".")[0], id(node) in top_level
+
+
+def test_import_guard():
+    """No file of the port, nor chip_smoke.py, nor smoke_worlds.py, imports
+    JAX, flax, the JAX package or the tests, anywhere; and the optional host
+    libraries (cv2, h5py, yaml, PIL, imageio, matplotlib, tqdm) are imported
+    inside functions only, never when a module is imported."""
+    import ast
+
+    srcs = sorted((REPO / "pixtrack_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "smoke_worlds.py"]
+    assert len(srcs) >= 45
+    seen_lazy = set()
+    for src in srcs:
+        for name, at_module_level in _imports(ast.parse(src.read_text(), filename=str(src))):
+            assert name not in _FORBIDDEN, f"{src.relative_to(REPO)} imports {name}"
+            if name in _LAZY_ONLY:
+                assert not at_module_level, f"{src.relative_to(REPO)} imports {name} at module level"
+                seen_lazy.add(name)
+    assert {"cv2", "h5py", "yaml"} <= seen_lazy  # the walk does see the imports inside functions
+    # the check itself: a top-level import is told from one inside a function
+    probe = ast.parse("import cv2\ndef f():\n    import h5py\n    from jax import numpy\n")
+    assert sorted(_imports(probe)) == [("cv2", True), ("h5py", False), ("jax", False)]
+
+
+def test_new_entry_points_default_to_the_card(monkeypatch, tmp_path):
+    """The entry points of the tracking side added last (handcrafted
+    extractor, feature store, YCB iterator, run configuration) ask for the
+    CUDA card unless a device is named."""
+    from pixtrack_tpu_torch.features import HandcraftedExtractor
+    from pixtrack_tpu_torch.tracking.feature_io import load_reference_features
+    from pixtrack_tpu_torch.utils.config import RunConfig
+    from pixtrack_tpu_torch.utils.io import YCBVideoIterator
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("PIXTRACK_UNET_WEIGHTS", str(tmp_path / "missing.npz"))
+    from pixtrack_tpu_torch.features import default_extractor
+
+    calls = [HandcraftedExtractor, default_extractor, lambda: load_reference_features(tmp_path / "none.h5"),
+             lambda: YCBVideoIterator(tmp_path, "1", 5), RunConfig().make_extractor,
+             RunConfig(extractor="handcrafted").make_extractor]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert HandcraftedExtractor(device="cpu").device.type == "cpu"
