@@ -1,8 +1,9 @@
 """Textured-mesh loading, rasterisation and surface sampling (host numpy).
 
-Port of ``load_obj`` and ``render_mesh`` from
-``pixtrack_tpu/mapping/mesh_render.py`` (the projection runs through the
-port's Pose and Camera), plus ``sample_mesh_surface``. The texture is read
+Port of ``load_obj``, ``icosphere_directions``, ``look_at_rig_for_mesh``
+and ``render_mesh`` from ``pixtrack_tpu/mapping/mesh_render.py`` (the
+projection runs through the port's Pose and Camera), plus
+``sample_mesh_surface``. The texture is read
 by a small PNG decoder of its own, so nothing beyond numpy and the standard
 library is needed.
 """
@@ -11,11 +12,14 @@ from __future__ import annotations
 
 import struct
 import zlib
+from itertools import combinations
 from pathlib import Path
 from typing import List
 
 import numpy as np
 import torch
+
+from pixtrack_tpu_torch.geometry import Pose
 
 _PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
 
@@ -119,6 +123,46 @@ def load_obj(path) -> dict:
         "faces_uv": np.asarray(faces_vt, np.int64),
         "texture": texture,
     }
+
+
+def icosphere_directions(subdiv: int = 1) -> np.ndarray:
+    """Unit directions of the icosahedron's 12 vertices, and with ``subdiv``
+    >= 1 the midpoints of its 30 edges too (42 in all)."""
+    phi = (1 + 5**0.5) / 2
+    v = np.array(
+        [[-1, phi, 0], [1, phi, 0], [-1, -phi, 0], [1, -phi, 0], [0, -1, phi], [0, 1, phi],
+         [0, -1, -phi], [0, 1, -phi], [phi, 0, -1], [phi, 0, 1], [-phi, 0, -1], [-phi, 0, 1]],
+        np.float64,
+    )
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    if subdiv >= 1:
+        extra = []
+        for a, b in combinations(range(len(v)), 2):
+            if v[a] @ v[b] > 0.4:  # adjacent
+                m = v[a] + v[b]
+                extra.append(m / np.linalg.norm(m))
+        v = np.unique(np.round(np.concatenate([v, extra]), 9), axis=0)
+    return v
+
+
+def look_at_rig_for_mesh(vertices: np.ndarray, n_margin: float = 2.8, subdiv: int = 1) -> List[Pose]:
+    """World-to-camera poses (CPU) on a sphere of ``n_margin`` times the
+    mesh's radius about its centroid, each looking at the centroid: the
+    mapping rig of the object pipeline."""
+    center = vertices.mean(axis=0)
+    dist = np.linalg.norm(vertices - center, axis=1).max() * n_margin
+    poses = []
+    for d in icosphere_directions(subdiv):
+        eye = center + d * dist
+        up = np.array([0.0, 1.0, 0.0]) if abs(d @ np.array([0.0, 1.0, 0.0])) <= 0.95 else np.array([1.0, 0.0, 0.0])
+        z = center - eye
+        z = z / np.linalg.norm(z)
+        x = np.cross(z, up)
+        x /= np.linalg.norm(x)
+        y = np.cross(z, x)
+        R = np.stack([x, y, z]).astype(np.float32)
+        poses.append(Pose.from_Rt(R, (-R @ eye).astype(np.float32)))
+    return poses
 
 
 def sample_mesh_surface(mesh: dict, n: int, seed: int = 0) -> np.ndarray:

@@ -14,6 +14,9 @@ On a CUDA tensor each wrapper launches its hand-written kernel (built at
 first use) or raises; on a CPU tensor it runs the plain version, which the
 tests and ``chip_smoke.py`` hold the kernel against. Each wrapper counts its
 launches (``launch_count``), the proof that a path went through it.
+Neither kernel has a backward: both wrappers raise, on either device, when
+autograd would need one (grad mode on and a weight or an input requiring
+grad); training renders through ``field_T`` instead (``RenderConfig.fused``).
 """
 
 from __future__ import annotations
@@ -150,16 +153,28 @@ def _unpack_weights(w, depth: int):
     return mats
 
 
+def _refuse_autograd(kernel: str, field, *inputs) -> None:
+    """Raise where autograd would need the kernel's backward, which it has not."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in field.tensors() + list(inputs)):
+        raise RuntimeError(
+            f"{kernel} has no backward: render with RenderConfig(fused=False) to train through the field, "
+            "or call it under torch.no_grad()"
+        )
+
+
 def _pack_weights(field, device):
     """The field's weights in the kernels' layout (K1 and K2 share it; the
     comment above defines it): one bf16 buffer of the tiled matrices [W1
     (128, 64) | trunk (depth-1, 128, 128) | head (16, 128) | color0 (64, 32)
     | color1 (64, 64) | color2 (8, 64)] and one f32 buffer of the matching
-    biases. Cached on the field per device."""
+    biases. Cached on the field per device, keyed on every weight's storage
+    and version counter: an in-place update (an optimizer step) or a new
+    tensor in the field's dicts packs the weights anew."""
     cache = field.__dict__.setdefault("_kernel_pack", {})
-    key = str(device)
+    key = (str(device), tuple((t.data_ptr(), t._version) for t in field.tensors()))
     if key in cache:
         return cache[key]
+    cache.clear()
     depth = len(field.trunk)
     width = field.trunk[0]["kernel"].shape[0]
     n_enc = 3 + 6 * field.octaves
@@ -179,7 +194,7 @@ def _pack_weights(field, device):
             "K1 and K2 are specialised to the production field: 8 or 10 octaves, a "
             "128-wide trunk, a 16-row head and colour 31/32->64->64->3"
         )
-    layers = field.trunk + [field.head] + field.color
+    layers = field.layers()
     mats = [p["kernel"].to(device).float() for p in layers]
     mats[0] = _gather_columns(mats[0], _enc_columns(field.octaves))
     mats[depth + 1] = _gather_columns(mats[depth + 1], _COLOR_COLUMNS)
@@ -234,6 +249,7 @@ def fused_march_render(
     (a miss has t_far <= t_near). CUDA tensors launch the CUDA kernel; CPU
     tensors take the plain version. Returns dict(rgb (R, 3), alpha (R,),
     depth (R,))."""
+    _refuse_autograd(K1, field, o_g, d_g, t_near, t_far)
     device = o_g.device
     if device.type == "cpu":
         return march_render_reference(
@@ -284,6 +300,7 @@ def fused_distilled_eval(field, xT, dT):
     (3, N), float32 and contiguous (K2). Returns (sigma (N,), rgbT (3, N)),
     the contract of ``DistilledField.field_T``. CUDA tensors launch the CUDA
     kernel; CPU tensors take the plain version."""
+    _refuse_autograd(K2, field, xT, dT)
     device = xT.device
     if device.type == "cpu":
         return distilled_eval_reference(field, xT, dT)

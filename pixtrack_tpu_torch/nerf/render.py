@@ -1,16 +1,21 @@
-"""Volume rendering of the distilled field.
+"""Volume rendering of any field with ``field_T``.
 
-Port of ``pixtrack_tpu/nerf/render.py`` for the distilled field. Spaces:
-the field lives in grid space [0, 1]^3; rays are built from NeRF-space
-OpenGL cameras; ``t`` and depth stay in NeRF units.
+Port of ``pixtrack_tpu/nerf/render.py``. Spaces: the field lives in grid
+space [0, 1]^3; rays are built from NeRF-space OpenGL cameras; ``t`` and
+depth stay in NeRF units.
 
-``render_rays`` takes one of two paths, each a kernel on a CUDA tensor and
-its plain version on a CPU tensor:
-- coarse only (``n_fine == 0``): K1, ``fused_march_render``, the whole ray
-  in one launch;
-- with an importance pass, or with jittered samples: the staged render
-  (JAX render.py:272-338), whose field evaluations go through K2,
-  ``fused_distilled_eval``.
+``render_rays`` takes one of two paths:
+- a ``DistilledField`` with ``cfg.fused``, coarse only (``n_fine == 0``),
+  not jittered: K1, ``fused_march_render``, the whole ray in one launch;
+- otherwise the staged render (JAX render.py:272-338). Its field
+  evaluations go through K2, ``fused_distilled_eval``, for a
+  ``DistilledField`` with ``cfg.fused``, and through ``field.field_T`` for
+  any other field (``NGPField``, ``BakedField``, analytic teachers) or with
+  ``fused=False``. Each kernel runs on a CUDA tensor and its plain version on
+  a CPU tensor; neither has a backward, so training renders with
+  ``fused=False``: the staged render is differentiable end to end (the
+  importance samples carry gradient through the coarse weights, and the
+  co-sort's permutation carries it to the sorted values, as in JAX).
 Jitter is drawn on the rays' device from a ``torch.Generator`` the caller
 seeds (the counterpart of the JAX ``key``): with a generator the importance
 pass draws its ``u`` at random, and with ``cfg.perturb`` as well the coarse
@@ -41,6 +46,7 @@ class RenderConfig:
     perturb: bool = False
     chunk: int = 16384  # rays per pass of the staged render
     density_scale: float = 1.0
+    fused: bool = True  # a DistilledField renders through K1 / K2
 
 
 def rays_from_camera(
@@ -159,11 +165,12 @@ def _composite(sigma, rgbT, ts, t_far, hit, min_transmittance, density_scale):
 
 
 def occupied_bounds(
-    field: DistilledField, aabb, res: int = 96, sigma_threshold: float = 0.01,
+    field, aabb, res: int = 96, sigma_threshold: float = 0.01,
     margin_cells: float = 1.5, chunk: int = 1 << 18,
 ):
-    """Grid-space bounds of the field's occupied region inside ``aabb``:
-    (aabb_tight (2, 3), sphere (4,)) as numpy (a one-time res^3 sweep)."""
+    """Grid-space bounds of the occupied region inside ``aabb`` of any field
+    with ``density_T`` and ``device``: (aabb_tight (2, 3), sphere (4,)) as
+    numpy (a one-time res^3 sweep)."""
     aabb = np.asarray(aabb, np.float32)
     centers = (np.arange(res, dtype=np.float32) + 0.5) / res
     zz, yy, xx = np.meshgrid(centers, centers, centers, indexing="ij")
@@ -215,22 +222,27 @@ def _draw_noise(n_rays: int, cfg: RenderConfig, generator: Optional[torch.Genera
     return noise, u
 
 
-def _render_staged(field: DistilledField, o_g, d_g, t_near, t_far, cfg: RenderConfig, noise=(None, None)):
+def _uses_kernels(field, cfg: RenderConfig) -> bool:
+    return cfg.fused and isinstance(field, DistilledField)
+
+
+def _render_staged(field, o_g, d_g, t_near, t_far, cfg: RenderConfig, noise=(None, None)):
     """The staged render of grid-space rays (a miss has t_far == t_near):
-    stratified coarse samples, their weights, importance samples, every
-    field evaluation through K2, the stable co-sort and compositing.
-    ``noise`` is ``_draw_noise``'s pair; (None, None) is the deterministic
-    render."""
+    stratified coarse samples, their weights, importance samples, the field
+    evaluations (through K2 where ``_uses_kernels``, else ``field.field_T``),
+    the stable co-sort and compositing. ``noise`` is ``_draw_noise``'s pair;
+    (None, None) is the deterministic render."""
     hit = t_far > t_near
     ts = _sample_grid(t_near, t_far, cfg.n_coarse, noise[0])
     oT, dT = o_g.T, d_g.T
     dnT = dT / torch.linalg.norm(dT, dim=0, keepdim=True).clamp_min(1e-9)
+    kernels = _uses_kernels(field, cfg)
 
     def eval_field(ts_):
         R, S = ts_.shape
         x = (oT[:, :, None] + ts_[None] * dT[:, :, None]).clamp(0.0, 1.0).reshape(3, R * S)
         d_rep = dnT[:, :, None].expand(3, R, S).reshape(3, R * S)
-        sigma, rgbT = fused_distilled_eval(field, x, d_rep)
+        sigma, rgbT = fused_distilled_eval(field, x, d_rep) if kernels else field.field_T(x, d_rep)
         return sigma.reshape(R, S), rgbT.reshape(3, R, S)
 
     sigma_c, rgb_c = eval_field(ts)
@@ -253,18 +265,17 @@ def _render_staged(field: DistilledField, o_g, d_g, t_near, t_far, cfg: RenderCo
 
 
 def render_rays(
-    field: DistilledField, origins_nerf, dirs_nerf, aabb, cfg: RenderConfig,
+    field, origins_nerf, dirs_nerf, aabb, cfg: RenderConfig,
     sphere: Optional[torch.Tensor] = None, generator: Optional[torch.Generator] = None,
 ):
-    """Render NeRF-space rays: through K1 when ``cfg.n_fine == 0`` and the
-    samples are not jittered (``cfg.perturb`` with a ``generator``), else
-    through the staged render and K2, ``cfg.chunk`` rays at a time, each
-    chunk drawing its noise from ``generator`` in turn.
-    Returns dict(rgb, alpha, depth)."""
-    if not isinstance(field, DistilledField):
-        raise NotImplementedError("only the distilled field renders in the port so far")
+    """Render NeRF-space rays of any field with ``field_T``: a
+    ``DistilledField`` with ``cfg.fused`` through K1 when ``cfg.n_fine ==
+    0`` and the samples are not jittered (``cfg.perturb`` with a
+    ``generator``); everything else through the staged render,
+    ``cfg.chunk`` rays at a time, each chunk drawing its noise from
+    ``generator`` in turn. Returns dict(rgb, alpha, depth)."""
     o_g, d_g, t_near, t_far = march_rays(origins_nerf, dirs_nerf, aabb, sphere)
-    if cfg.n_fine == 0 and not (cfg.perturb and generator is not None):
+    if _uses_kernels(field, cfg) and cfg.n_fine == 0 and not (cfg.perturb and generator is not None):
         return fused_march_render(field, o_g, d_g, t_near, t_far, cfg.n_coarse,
                                   cfg.min_transmittance, cfg.density_scale)
     parts = [
@@ -278,7 +289,7 @@ def render_rays(
 
 
 def render_image(
-    field: DistilledField, c2w_nerf, fx, fy, cx, cy, width: int, height: int,
+    field, c2w_nerf, fx, fy, cx, cy, width: int, height: int,
     aabb, cfg: RenderConfig, background=(1.0, 1.0, 1.0),
     sphere: Optional[torch.Tensor] = None, generator: Optional[torch.Generator] = None,
 ):

@@ -1,12 +1,16 @@
-"""Testbed facade: the instant-ngp-shaped rendering interface, distilled-field subset.
+"""Testbed facade: the instant-ngp-shaped rendering interface.
 
-Port of the parts of ``pixtrack_tpu/nerf/testbed.py`` the tracker uses:
-install a distilled field (``set_baked_field``), the render crop
-(``render_aabb``), exact intrinsics (``override_intrinsics``), occupied-bounds
-tightening and a Shade/Depth ``render`` at the defaults of 64 coarse and 32
-importance samples per ray (K2), or coarse only (K1) when ``n_fine`` is 0;
-``spp > 1`` is the mean of ``spp`` jittered renders (always K2). Hash-grid
-snapshots and baking are not ported.
+Port of ``pixtrack_tpu/nerf/testbed.py``: load a hash-grid snapshot
+(``load_snapshot``, baked by default) or install a field (``set_field``,
+``set_baked_field``), bake it, distill it into the render field
+(``distill``, optionally fine-tuned on the capture), the render crop
+(``render_aabb``), exact intrinsics (``override_intrinsics``),
+occupied-bounds tightening and a Shade/Depth ``render`` at the defaults of
+64 coarse and 32 importance samples per ray. The render field is the
+installed baked or distilled field, else the vertex field. A distilled
+field renders through K2, or K1 when ``n_fine`` is 0; the hash-grid fields
+through the staged render's plain field evaluation. ``spp > 1`` is the
+mean of ``spp`` jittered renders (never K1).
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import torch
 
 from pixtrack_tpu_torch._device import resolve
 from pixtrack_tpu_torch.nerf.render import RenderConfig, occupied_bounds, render_image
+from pixtrack_tpu_torch.nerf.snapshot import load_snapshot
 
 
 class RenderMode(enum.Enum):
@@ -49,28 +54,78 @@ class Testbed:
         # exact (fx, fy, cx, cy); None derives them from the field of view
         self.override_intrinsics = None
         self._camera = np.eye(4)
-        self._baked = None
+        self.field = None  # the vertex (hash-grid) field
+        self._baked = None  # the render field: baked or distilled
         self.n_coarse = 64
         self.n_fine = 32
         self._sphere = None
 
     def load_snapshot(self, path, bake: bool = True) -> None:
-        raise NotImplementedError("hash-grid snapshots are not ported yet")
+        """Load a hash-grid snapshot (either package's) onto the Testbed's
+        device, take its crop box from the snapshot's ``aabb``, and bake it."""
+        field, extra = load_snapshot(path, device=self.device)
+        if "aabb" in extra:
+            self.render_aabb.min = list(extra["aabb"][0])
+            self.render_aabb.max = list(extra["aabb"][1])
+        self.set_field(field, bake=bake)
 
-    def bake(self) -> None:
-        raise NotImplementedError("hash-grid baking is not ported yet")
+    def set_field(self, field, bake: bool = False) -> None:
+        """Install a vertex field (``NGPField``); drops any render field."""
+        self.field = field
+        self._baked = None
+        if bake:
+            self.bake()
 
     def set_baked_field(self, field) -> None:
-        """Install a distilled render field (``nerf.distill.load_distilled``)."""
+        """Install a baked or distilled render field (``nerf.distill.load_distilled``)."""
         self._baked = field
 
-    def tighten_render_bounds(self, res: int = 96, sigma_threshold: float = 0.01) -> None:
-        """Shrink render_aabb to the field's occupied box and install the
-        occupied bounding ball for per-ray interval tightening."""
-        if self._baked is None:
+    def bake(self) -> None:
+        """Pack the vertex field into the cell-packed render field
+        (``nerf.baked.bake``); the vertex field is kept."""
+        from pixtrack_tpu_torch.nerf.baked import bake
+
+        self._baked = bake(self.field)
+
+    def _render_field(self):
+        fld = self._baked if self._baked is not None else self.field
+        if fld is None:
             raise RuntimeError("no field loaded")
+        return fld
+
+    def distill(self, config=None, seed: int = 0, clean_floaters: bool = True, finetune_dataset=None,
+                finetune_steps: int = 3000) -> None:
+        """Replace the render field with a distilled MLP fitted to the
+        current one (the baked field if installed, else the vertex field).
+
+        ``clean_floaters``: clamp the teacher's density to zero outside the
+        largest connected component of its occupancy, so that floaters of a
+        short training are erased from the student. ``finetune_dataset``: a
+        NerfDataset (the training capture) to fine-tune the student on
+        through the renderer (``finetune_photometric``, ``finetune_steps``
+        steps, seed ``seed + 1``)."""
+        from pixtrack_tpu_torch.nerf.baked import main_component, occupancy_grid
+        from pixtrack_tpu_torch.nerf.distill import DistillConfig, distill, finetune_photometric
+
+        teacher = self._render_field()
+        occ = occupancy_grid(teacher)
+        mask = None
+        if clean_floaters and occ.any():
+            mask = main_component(occ)
+            occ = occ & mask
         aabb = np.asarray([self.render_aabb.min, self.render_aabb.max], np.float32)
-        tight, sphere = occupied_bounds(self._baked, aabb, res=res, sigma_threshold=sigma_threshold)
+        self._baked = distill(teacher, aabb, occ=occ, config=config or DistillConfig(), seed=seed,
+                              density_mask=mask)
+        if finetune_dataset is not None:
+            self._baked = finetune_photometric(self._baked, finetune_dataset, aabb, steps=finetune_steps,
+                                               seed=seed + 1)
+
+    def tighten_render_bounds(self, res: int = 96, sigma_threshold: float = 0.01) -> None:
+        """Shrink render_aabb to the render field's occupied box and install
+        the occupied bounding ball for per-ray interval tightening. The
+        sweep trusts the current render_aabb as the field's domain."""
+        aabb = np.asarray([self.render_aabb.min, self.render_aabb.max], np.float32)
+        tight, sphere = occupied_bounds(self._render_field(), aabb, res=res, sigma_threshold=sigma_threshold)
         self.render_aabb.min = [float(v) for v in tight[0]]
         self.render_aabb.max = [float(v) for v in tight[1]]
         self._sphere = sphere
@@ -100,8 +155,7 @@ class Testbed:
         channels. ``spp == 1`` is one deterministic sample per pixel;
         ``spp > 1`` is the mean of ``spp`` jittered renders, each drawing
         from its own device generator split from ``seed``."""
-        if self._baked is None:
-            raise RuntimeError("no field loaded")
+        field = self._render_field()
         dev = self.device
         cfg = RenderConfig(n_coarse=self.n_coarse, n_fine=self.n_fine,
                            min_transmittance=float(self.nerf.rendering_min_transmittance), perturb=spp > 1)
@@ -110,7 +164,7 @@ class Testbed:
         c2w = torch.as_tensor(self._camera, dtype=torch.float32, device=dev)
 
         def one(generator):
-            return render_image(self._baked, c2w, *self._intrinsics(width, height), width, height, aabb, cfg,
+            return render_image(field, c2w, *self._intrinsics(width, height), width, height, aabb, cfg,
                                 background=tuple(self.background_color[:3]), sphere=sphere, generator=generator)
 
         with torch.no_grad():
@@ -130,3 +184,23 @@ class Testbed:
         if self.exposure:
             rgba[..., :3] = rgba[..., :3] * (2.0 ** self.exposure)
         return rgba.astype(np.float32)
+
+
+def initialize_testbed(snapshot_path, aabb=None, background=None, tighten: bool = False, device=None) -> Testbed:
+    """The reference's ``initialize_ingp`` defaults over a baked snapshot, on
+    ``device`` (None is the CUDA card); ``tighten`` runs the occupied-bounds
+    sweep."""
+    if background is None:
+        background = [255, 255, 255, 0.0]
+    tb = Testbed(device=device)
+    tb.load_snapshot(snapshot_path)
+    tb.background_color = [c / 255.0 if c > 1 else c for c in background]
+    tb.nerf.rendering_min_transmittance = 1e-7
+    tb.fov_axis = 0
+    if aabb is not None:
+        tb.render_aabb.min = list(aabb[0])
+        tb.render_aabb.max = list(aabb[1])
+    tb.exposure = 0.0
+    if tighten:
+        tb.tighten_render_bounds()
+    return tb

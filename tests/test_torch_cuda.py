@@ -299,3 +299,60 @@ def test_make_tracker_r6_launches_k1(cuda_device):
     refs = [tracker.static_reference(i) for i in ids + ids]  # the second pass is served from memory
     assert fused_mlp.launch_count(fused_mlp.K1) == 2 and fused_mlp.launch_count(fused_mlp.K2) == 0
     assert refs[0] is refs[2] and refs[0].feats[0].is_cuda and len(refs[0].feats) == 3
+
+
+@pytest.mark.cuda
+def test_k1_and_k2_follow_an_in_place_finetune_step(cuda_device):
+    """K1 and K2 pack the field's weights once and reuse them; after a
+    fine-tune step that updates the field's tensors in place (the staged
+    render with fused=False, Adam), both render the new weights: each
+    agrees with its plain version on them, and differs from its output
+    before the step."""
+    from pixtrack_tpu_torch.nerf.optim import Adam
+
+    field = _field(10, cuda_device)
+    o_g, d_g, tn, tf = _rays(2048, cuda_device)
+    x = torch.rand(3, 4099, device=cuda_device)
+    dn = torch.nn.functional.normalize(torch.randn(3, 4099, device=cuda_device), dim=0)
+    with torch.no_grad():
+        before = fused_mlp.fused_march_render(field, o_g, d_g, tn, tf, 96, 1e-7)
+        before_k2 = fused_mlp.fused_distilled_eval(field, x, dn)
+    params = [t.requires_grad_(True) for t in field.tensors()]
+    rng = np.random.default_rng(2)
+    o = torch.as_tensor(rng.normal(size=(512, 3)).astype(np.float32), device=cuda_device)
+    o = 1.6 * o / o.norm(dim=1, keepdim=True)
+    out = render_rays(field, o, -o / 1.6, torch.tensor([[0.25] * 3, [0.75] * 3], device=cuda_device),
+                      RenderConfig(n_coarse=32, n_fine=0, fused=False))
+    (out["rgb"] - 0.5).square().mean().backward()
+    Adam(params, 1e-2, 10, 1e-3).step()
+    with torch.no_grad():
+        after = fused_mlp.fused_march_render(field, o_g, d_g, tn, tf, 96, 1e-7)
+        ref = fused_mlp.march_render_reference(field, o_g, d_g, tn, tf, 96, 1e-7)
+        s_k, c_k = fused_mlp.fused_distilled_eval(field, x, dn)
+        s_p, c_p = fused_mlp.distilled_eval_reference(field, x, dn)
+    torch.cuda.synchronize()
+    for k in ("alpha", "rgb"):
+        assert float((after[k] - ref[k]).abs().max()) <= TOL, k
+    assert float((after["rgb"] - before["rgb"]).abs().max()) > 10 * TOL  # the step moved the render
+    assert float((c_k - c_p).abs().max()) <= 1e-2 and float((torch.log1p(s_k) - torch.log1p(s_p)).abs().max()) <= 1e-2
+    assert float((c_k - before_k2[1]).abs().max()) > 10 * TOL
+
+
+@pytest.mark.cuda
+def test_k1_and_k2_refuse_gradients(cuda_device):
+    """Neither kernel has a backward: with grad mode on and a weight requiring
+    grad, both raise before they launch; under no_grad both run."""
+    field = _field(8, cuda_device)
+    field.trunk[0]["kernel"].requires_grad_(True)
+    o_g, d_g, tn, tf = _rays(256, cuda_device)
+    x = torch.rand(3, 100, device=cuda_device)
+    fused_mlp.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="no backward"):
+        fused_mlp.fused_march_render(field, o_g, d_g, tn, tf, 48, 1e-7)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fused_mlp.fused_distilled_eval(field, x, x)
+    assert fused_mlp.launch_count(fused_mlp.K1) == fused_mlp.launch_count(fused_mlp.K2) == 0
+    with torch.no_grad():
+        fused_mlp.fused_march_render(field, o_g, d_g, tn, tf, 48, 1e-7)
+        fused_mlp.fused_distilled_eval(field, x, x)
+    assert fused_mlp.launch_count(fused_mlp.K1) == fused_mlp.launch_count(fused_mlp.K2) == 1

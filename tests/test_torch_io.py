@@ -167,8 +167,8 @@ def test_port_imports_no_jax():
                 assert words[1].split(".")[0] not in ("jax", "flax", "tqdm", "pixtrack_tpu"), (src, line)
 
 
-_FORBIDDEN = ("jax", "jaxlib", "flax", "pixtrack_tpu", "tests")
-_LAZY_ONLY = ("cv2", "h5py", "yaml", "PIL", "imageio", "matplotlib", "tqdm")
+_FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "pixtrack_tpu", "tests")
+_LAZY_ONLY = ("cv2", "h5py", "yaml", "PIL", "imageio", "matplotlib", "tqdm", "msgpack")
 
 
 def _imports(tree):
@@ -188,13 +188,15 @@ def _imports(tree):
 
 
 def test_import_guard():
-    """No file of the port, nor chip_smoke.py, nor smoke_worlds.py, imports
-    JAX, flax, the JAX package or the tests, anywhere; and the optional host
-    libraries (cv2, h5py, yaml, PIL, imageio, matplotlib, tqdm) are imported
-    inside functions only, never when a module is imported."""
+    """No file of the port, nor chip_smoke.py, smoke_worlds.py or
+    scripts_dev/asset_build_full.py (all run on the card's machine), imports
+    JAX, flax, optax, the JAX package or the tests, anywhere; and the optional
+    host libraries (cv2, h5py, yaml, PIL, imageio, matplotlib, tqdm, msgpack)
+    are imported inside functions only, never when a module is imported."""
     import ast
 
-    srcs = sorted((REPO / "pixtrack_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "smoke_worlds.py"]
+    srcs = sorted((REPO / "pixtrack_tpu_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py", REPO / "smoke_worlds.py", REPO / "scripts_dev" / "asset_build_full.py"]
     assert len(srcs) >= 45
     seen_lazy = set()
     for src in srcs:
@@ -203,7 +205,7 @@ def test_import_guard():
             if name in _LAZY_ONLY:
                 assert not at_module_level, f"{src.relative_to(REPO)} imports {name} at module level"
                 seen_lazy.add(name)
-    assert {"cv2", "h5py", "yaml"} <= seen_lazy  # the walk does see the imports inside functions
+    assert {"cv2", "h5py", "yaml", "msgpack"} <= seen_lazy  # the walk does see the imports inside functions
     # the check itself: a top-level import is told from one inside a function
     probe = ast.parse("import cv2\ndef f():\n    import h5py\n    from jax import numpy\n")
     assert sorted(_imports(probe)) == [("cv2", True), ("h5py", False), ("jax", False)]
