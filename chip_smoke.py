@@ -56,7 +56,20 @@ nothing of JAX. Phases:
     the student's renders through the Testbed (K1 and K2, counted), both
     kernels against their plain versions on the fine-tuned weights and after
     an in-place update of them, and hold-out PSNRs beside the teacher's and
-    the shipped field's.
+    the shipped field's;
+21. the procedural house of the shipped build (``make_house_obj``), written
+    by the port: the same OBJ text and atlas pixels as ``assets/mesh_world/src``;
+22. ``sfm-from-obj`` (``pixtrack_tpu_torch.pipelines.cli``) on the shipped
+    rig, 42 views of 448x448: render, Harris detection and description,
+    861 pairs matched and filtered, tracks and triangulation on the card,
+    against the JAX package's model of the same rig;
+23. ``train-nerf`` (cut to a few hundred steps) and ``nerf-sfm``: the views
+    re-rendered from the baked hash field and triangulated again, no K1 or
+    K2 launched;
+24. ``augment`` of phase 22's model: 504 images, database.db, covis.pkl,
+    poses equal to the shipped ``aug_sfm``'s;
+25. phase 7's fused closed loop and open loop over the model of phase 24,
+    with the shipped field.
 
 Every phase prints its wall time. Every check raises on failure, so any failed phase exits non-zero. The
 second-to-last line is the kernel table as JSON; the last line is
@@ -90,6 +103,13 @@ K1_SHARE, K1_TRAINED_ALL_TOL = 0.999, 1e-2
 # version's share plus EXACT_SLACK. Measured: K2, mesh field, 5.3e-4 of the
 # samples against the plain version's 4.5e-4 in rgb, 3.8e-4 against 2.9e-4 in
 # log1p(sigma); K1, blob set, 5 rays of 76,800 against 2.
+# On the fine-tuned students of phase 20 this rule replaces the bound on every
+# ray: the full-budget student's worst K1 ray (scripts_dev/asset_build_full.py)
+# is 4.3e-3 from the exact sums where its plain version is exact; its
+# 96 samples through K2 (the same network) hold one sample 4.8e-2 off in a
+# flipped bf16 rounding, and composited in f64 they give K1's output to 7e-7.
+# So K1 composites right and the tail is the network's tensor-core sum order,
+# which a fine-tuned field may carry past any fixed bound (another run: 1.63e-2).
 EXACT_RATIO, EXACT_SLACK = 1.5, 1e-4
 # K2 against its plain version, on rgb and on log1p(sigma) (that is
 # softplus(h), the quantity whose error is absolute; sigma itself reaches 6e5
@@ -126,29 +146,30 @@ BLOB_GATE_DEG = 3.0
 # nearest pose costs most is open. So the loop is run MESH_CHAINS times, the
 # cold start's translation moved by k * 1e-6 along x in chain k (a few ulps):
 # the best chain must reach MESH_MIN_OK successes at a rotation median of
-# MESH_MED_GATE_DEG, and MESH_MIN_CHAINS chains must reach that count.
+# MESH_MED_GATE_DEG, and a second chain must reach that count (MESH_GATES).
 # Measured on one H100 (80GB HBM3, 700 W), chains 0-5: 3, 15, 15, 2, 15, 15 of
-# 20; every chain that passes frame 4 reaches 15/20 (first miss frame 16) at a
-# rotation median of 1.77-2.03 deg. With K1's plain version rendering, one
+# 20 (7, 15, 15, 15, 15, 15 once the UNet rounds as XLA's does); every chain
+# that passes frame 4 reaches 15/20 (first miss frame 16) at a rotation
+# median of 1.77-2.43 deg. With K1's plain version rendering, one
 # cold start gave 15/20 and one that differed in its last bits 2/20. The same
 # fused frame is also held in open loop, each frame started from the previous
 # frame's ground truth, where a flip costs one frame and not the rest. Measured
-# there: 15/20, rotation median 1.31 deg; three of the five misses cost
+# there: 15/20 (17/20 with the UNet rounding as XLA's), rotation median 1.31 deg; three of the five misses cost
 # 0.0912-0.0916 and two of the successes 0.0883-0.0887, so that count is held
 # to MESH_MIN_OK too.
-MESH_MIN_OK, MESH_MED_GATE_DEG, MESH_CHAINS, MESH_MIN_CHAINS = 13, 3.0, 6, 2
+MESH_MIN_OK, MESH_MED_GATE_DEG, MESH_CHAINS = 13, 3.0, 6
+MESH_GATES = {"best_ok": MESH_MIN_OK, "best_med": MESH_MED_GATE_DEG, "second_ok": MESH_MIN_OK,
+              "open_ok": MESH_MIN_OK, "open_med": MESH_MED_GATE_DEG}
 # The JAX package's stepwise tracker on the same 10 frames, on the CPU
 # (scripts_dev/stepwise_mesh_jax.py): UNet f32 3/10 successes, rotation
 # median 3.99 deg; UNet bf16 10/10, 1.99 deg. Its bf16 run owes its 10/10 to
 # frame 2, where XLA's bf16 UNet lands the LM in a lower minimum (cost
-# 0.0798) than XLA's f32 UNet or the port's UNet in either dtype
-# (0.08423-0.08425) from the same start; the port's tracker with XLA's bf16 UNet
-# in place of its own lands where JAX's does (0.07974,
-# scripts_dev/stepwise_frame2_unet_swap.py). Both runs must reach JAX's f32 count
-# less one success. The rotation median is held to 3 deg in f32, and in bf16,
-# where the port misses JAX's lower minimum, to JAX's f32 median plus 0.5 deg.
-JAX_STEPWISE_OK = 3
-STEP_MED_GATE_DEG = {"float32": 3.0, "bfloat16": 4.5}
+# 0.0798) than XLA's f32 UNet from the same start. Since the port's UNet
+# rounds where XLA's compiled one rounds, the card lands there too
+# (0.0797) and reaches 10/10 at 2.40 deg in bf16 and 10/10 at 2.11 deg in f32
+# (NVIDIA H100 80GB HBM3, 700 W). Each run is held to JAX's count of its dtype
+# less one success; the rotation median to 3 deg.
+STEP_GATES = {"float32": (3 - 1, 3.0), "bfloat16": (10 - 1, 3.0)}
 # Phase 12. The mean of four jittered 64 + 32 sample renders against the
 # deterministic render, on rgb where alpha > 0.99 in both. Measured on one
 # H100 (80GB HBM3, 700 W): max 0.0232 (mean 0.00155) at 224x224, max 0.0334
@@ -178,7 +199,12 @@ UP_WORLD, ROLL_MAX_DEG, ROLL_GATE_DEG = (0.0, 1.0, 0.0), 30.0, 2.0
 # the CPU test's tolerances for the two loops (tests/test_torch_align.py:
 # 0.02 deg, 2e-4, 1e-3 relative). Measured on one H100 (80GB HBM3, 700 W):
 # 0.0000 deg, 3.9e-5 and 4.2e-6 apart, after 25, 150 and 39 traced iterations.
-TRACE_ROT_DEG, TRACE_T, TRACE_COST_REL = 0.02, 2e-4, 1e-3
+# With the UNet rounding where XLA rounds the two loops part by
+# 0.0273 deg on the card, both 5.02 deg from the ground truth at costs 1.03e-6
+# apart, in each of three runs (every number printed equal: the gap is
+# deterministic, no spread between runs); the rotation is held to that
+# reading with 1.8x room, 0.05 deg.
+TRACE_ROT_DEG, TRACE_T, TRACE_COST_REL = 0.05, 2e-4, 1e-3
 # an H100 SXM's dense bf16 tensor-core rate and memory bandwidth, the bounds' peaks
 PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 989e12, 3.35e12
 
@@ -674,12 +700,13 @@ def phase_blob(device, n_frames=20):
 
 
 # ----------------------------------------------------------------- phase 7 --
-def mesh_assets(device, n_frames=20, unet_dtype=None):
+def mesh_assets(device, n_frames=20, unet_dtype=None, aug_sfm=None):
     """What every mesh-world tracker is built from (bench.py:258-440): the
-    SfM scene, the UNet extractor (bf16 unless ``unet_dtype`` says
-    otherwise), the Testbed over the trained field, the upright pick, the
-    ground-truth orbit of n_frames + 1 poses and the query frames from the
-    mesh rasteriser, black background."""
+    SfM scene (the shipped ``aug_sfm`` unless ``aug_sfm`` names another
+    model), the UNet extractor (bf16 unless ``unet_dtype`` says otherwise),
+    the Testbed over the trained field, the upright pick, the ground-truth
+    orbit of n_frames + 1 poses and the query frames from the mesh
+    rasteriser, black background."""
     import types
 
     import torch
@@ -695,7 +722,7 @@ def mesh_assets(device, n_frames=20, unet_dtype=None):
 
     mw = REPO / "assets" / "mesh_world"
     meta = json.loads((mw / "meta.json").read_text())
-    scene = SceneModel.load(mw / "aug_sfm")
+    scene = SceneModel.load(aug_sfm or mw / "aug_sfm")
     n2s = nerf_transform.NerfTransform.load(mw / "nerf2sfm.pkl")
     mesh = load_obj(mw / "src" / "house.obj")
     testbed = Testbed(device=device)
@@ -770,13 +797,20 @@ def mesh_chain(step, T0, ok0: bool, thresh, queries, k: int):
     return outs
 
 
-def phase_mesh(device, n_frames=20):
+def phase_mesh(device, n_frames=20, aug_sfm=None, gates=None, label="mesh"):
+    """The fused closed loop over MESH_CHAINS perturbed cold starts, then the
+    same fused frame in open loop, on the shipped model or on ``aug_sfm``,
+    held to ``gates`` (phase 7's by default); every fused frame after the
+    cold start launches K1 once."""
     import torch
 
-    assets = mesh_assets(device, n_frames)
+    from pixtrack_tpu_torch.nerf import fused_mlp
+
+    g = gates or MESH_GATES
+    assets = mesh_assets(device, n_frames, aug_sfm=aug_sfm)
     tracker, camera, frames, gt, mesh, diameter = mesh_world(device, assets=assets)
     outs = tracker.run_fused(frames, camera=camera)  # cold start + fused frames: chain 0
-    check(len(outs) == n_frames, "mesh world: missing frames")
+    check(len(outs) == n_frames, f"{label}: missing frames")
     cold = tracker.pose_history[frames[0][0]]
 
     step = tracker._fused_step
@@ -788,6 +822,7 @@ def phase_mesh(device, n_frames=20):
         return mesh_chain(step, T0, bool(cold["success"]), thresh, queries, k)
 
     # timed pass: chain 0 again, one sync at the end
+    k1_before = fused_mlp.launch_count(fused_mlp.K1)
     torch.cuda.synchronize()
     t_start = time.perf_counter()
     chain(0)
@@ -802,20 +837,32 @@ def phase_mesh(device, n_frames=20):
                                                mesh, diameter)
         oks = [bool(o.ok) for o in k_outs]
         results.append({"ok": sum(oks), "rot_med": float(np.median(rot)), "add_auc": add_auc, "add_s_auc": add_s_auc})
-        log(f"[mesh] closed loop, chain {k} (cold start moved by {k}e-6), UNet {unet}, {n_frames} frames: "
+        log(f"[{label}] closed loop, chain {k} (cold start moved by {k}e-6), UNet {unet}, {n_frames} frames: "
             f"success {sum(oks)}/{len(oks)}, first miss at frame {oks.index(False) + 1 if False in oks else None}, "
             f"rot med/max {np.median(rot):.2f}/{np.max(rot):.2f} deg, ADD AUC@0.1d {add_auc:.3f}, ADD-S AUC "
             f"{add_s_auc:.3f}; per-frame cost {[round(float(o.cost), 4) for o in k_outs]} vs threshold "
             f"{tracker.cost_threshold:.4f}; per-frame rot err deg {[round(float(r), 2) for r in rot]}")
-    best = max(results, key=lambda r: r["ok"])
-    reached = sum(r["ok"] >= MESH_MIN_OK for r in results)
-    log(f"[mesh] closed loop, {MESH_CHAINS} chains: successes {[r['ok'] for r in results]} of {n_frames} "
+    ranked = sorted(results, key=lambda r: -r["ok"])
+    best = ranked[0]
+    if "ranked" in g:
+        gate_text = "ranked chains >= / <= " + ", ".join(f"{ok} / {med:.2f} deg" for ok, med in g["ranked"])
+    else:
+        gate_text = f"best >= {g['best_ok']} at <= {g['best_med']:.2f} deg, second >= {g['second_ok']}"
+    log(f"[{label}] closed loop, {MESH_CHAINS} chains: successes {[r['ok'] for r in results]} of {n_frames} "
         f"(BENCH_r05 18/20); the best chain: rot med {best['rot_med']:.2f} deg (1.63), ADD AUC@0.1d "
         f"{best['add_auc']:.3f} (0.685), ADD-S AUC {best['add_s_auc']:.3f} (0.750); cold-start cost "
-        f"{cold['cost']:.4f}; chain 0 FPS = {fps:.2f}")
-    check(best["ok"] >= MESH_MIN_OK, f"mesh world: the best chain has {best['ok']} successes < {MESH_MIN_OK}")
-    check(best["rot_med"] <= MESH_MED_GATE_DEG, f"mesh world: the best chain's rotation median {best['rot_med']:.2f} deg")
-    check(reached >= MESH_MIN_CHAINS, f"mesh world: {reached} chains of {MESH_CHAINS} reach {MESH_MIN_OK} successes")
+        f"{cold['cost']:.4f}; chain 0 FPS = {fps:.2f}; gates: {gate_text}")
+    if "ranked" in g:
+        # both sides ranked by (successes, median), as REBUILT_GATES ranks JAX's chains
+        by_ok_med = sorted(results, key=lambda r: (-r["ok"], r["rot_med"]))
+        for i, (r, (min_ok, max_med)) in enumerate(zip(by_ok_med, g["ranked"])):
+            check(r["ok"] >= min_ok and r["rot_med"] <= max_med,
+                  f"{label}: ranked chain {i} has {r['ok']} successes at {r['rot_med']:.2f} deg, gate {min_ok} at "
+                  f"{max_med:.2f}")
+    else:
+        check(best["ok"] >= g["best_ok"], f"{label}: the best chain has {best['ok']} successes < {g['best_ok']}")
+        check(best["rot_med"] <= g["best_med"], f"{label}: the best chain's rotation median {best['rot_med']:.2f} deg")
+        check(ranked[1]["ok"] >= g["second_ok"], f"{label}: the second chain has {ranked[1]['ok']} < {g['second_ok']}")
 
     # open loop: the same fused frame, each from the previous frame's ground truth
     always = torch.tensor(True, device=device)
@@ -824,12 +871,16 @@ def phase_mesh(device, n_frames=20):
     o_auc, o_s_auc, o_rot = pose_metrics([(o.R.cpu().numpy(), o.t.cpu().numpy()) for o in open_outs], gt[1:],
                                          mesh, diameter)
     o_oks = [bool(o.ok) for o in open_outs]
-    log(f"[mesh] open loop (each frame from the previous frame's ground truth), UNet {unet}, {n_frames} frames: "
+    fused_frames = (MESH_CHAINS + 1) * n_frames  # the timed pass, chains 1.., the open loop
+    k1 = fused_mlp.launch_count(fused_mlp.K1) - k1_before
+    log(f"[{label}] open loop (each frame from the previous frame's ground truth), UNet {unet}, {n_frames} frames: "
         f"per-frame cost {[round(float(o.cost), 4) for o in open_outs]}; success {sum(o_oks)}/{len(o_oks)}, "
-        f"rot med/max {np.median(o_rot):.2f}/{np.max(o_rot):.2f} deg, ADD AUC@0.1d {o_auc:.3f}, ADD-S AUC {o_s_auc:.3f}")
-    check(sum(o_oks) >= MESH_MIN_OK, f"mesh world, open loop: {sum(o_oks)} successes < {MESH_MIN_OK}")
-    check(np.median(o_rot) <= MESH_MED_GATE_DEG, f"mesh world, open loop: rotation median {np.median(o_rot):.2f} deg")
-    return tracker, queries, {"fps": fps}, assets
+        f"rot med/max {np.median(o_rot):.2f}/{np.max(o_rot):.2f} deg, ADD AUC@0.1d {o_auc:.3f}, ADD-S AUC {o_s_auc:.3f}"
+        f"; K1 launches over the {fused_frames} fused frames after the first chain: {k1}")
+    check(sum(o_oks) >= g["open_ok"], f"{label}, open loop: {sum(o_oks)} successes < {g['open_ok']}")
+    check(np.median(o_rot) <= g["open_med"], f"{label}, open loop: rotation median {np.median(o_rot):.2f} deg")
+    check(k1 == fused_frames, f"{label}: K1 launched {k1} times over {fused_frames} fused frames")
+    return tracker, queries, {"fps": fps, "chains": [r["ok"] for r in results], "open": sum(o_oks)}, assets
 
 
 def pose_metrics(poses, gt, mesh, diameter):
@@ -939,9 +990,9 @@ def phase_stepwise(device, unet_dtype, n_frames=10):
         f"({wall:.2f} s); launches K1 {launches[fused_mlp.K1]}, K2 {launches[fused_mlp.K2]}")
     check(launches[fused_mlp.K2] > 0, "stepwise: K2 was never launched")
     check(launches[fused_mlp.K1] == 0, f"stepwise: the path reached K1 ({launches[fused_mlp.K1]} launches)")
-    check(np.median(rot) <= STEP_MED_GATE_DEG[unet],
-          f"stepwise, UNet {unet}: rotation median {np.median(rot):.2f} deg > {STEP_MED_GATE_DEG[unet]}")
-    check(oks >= JAX_STEPWISE_OK - 1, f"stepwise: {oks} successes < {JAX_STEPWISE_OK - 1}")
+    min_ok, med_gate = STEP_GATES[unet]
+    check(np.median(rot) <= med_gate, f"stepwise, UNet {unet}: rotation median {np.median(rot):.2f} deg > {med_gate}")
+    check(oks >= min_ok, f"stepwise, UNet {unet}: {oks} successes < {min_ok}")
     return tracker, frames, gt, launches
 
 
@@ -1505,27 +1556,33 @@ def phase_student(device, cap, tb, teacher_psnr, gate=True):
             staged = render_rays(student, o, d, box[0], cfg, sphere=box[1])
             with k2_plain():
                 staged_ref = render_rays(student, o, d, box[0], cfg, sphere=box[1])
-            if label == "fine-tuned weights":  # both K1 versions against the exact (f64) sums
+            if label == "fine-tuned weights":  # both versions of each against the exact (f64) sums
                 exact = fused_mlp.march_render_reference(ExactField(student), *rays, 96, 1e-7)
+                staged_exact = render_rays(ExactField(student), o, d, box[0], cfg, sphere=box[1])
                 to_exact = k1_errors(out, exact), k1_errors(ref, exact)
+                staged_to_exact = k1_errors(staged, staged_exact), k1_errors(staged_ref, staged_exact)
             torch.cuda.synchronize()
             errs[label] = e1, e2 = k1_errors(out, ref), k1_errors(staged, staged_ref)
-            for name, e in (("K1", e1), ("the staged render through K2", e2)):
-                # the trained-weights rule on the fine-tuned weights; after the
-                # in-place update its share alone, which a stale weight pack
-                # misses by far
-                ok = e["share"] >= K1_SHARE and (label != "fine-tuned weights"
-                                                 or max(e["alpha"], e["rgb"]) <= K1_TRAINED_ALL_TOL)
+            for name, e, (ek, ep) in (("K1", e1, to_exact), ("the staged render through K2", e2, staged_to_exact)):
+                # the share within K1_TOL of the plain version (a stale weight
+                # pack after the in-place update misses it by far); on the
+                # fine-tuned weights, the per-ray rule against the exact sums
+                # in place of a bound on every ray (see EXACT_RATIO)
+                ok = e["share"] >= K1_SHARE and (
+                    label != "fine-tuned weights"
+                    or 1.0 - ek["share"] <= EXACT_RATIO * (1.0 - ep["share"]) + EXACT_SLACK)
                 if not ok:
-                    failed.append(f"student, {label}: {name} disagrees with its plain version: {e}")
+                    failed.append(f"student, {label}: {name} disagrees with its plain version: {e}, against the "
+                                  f"exact sums {ek} (plain {ep})")
     log(f"[student] tighten, distill ({DISTILL_STEPS} steps) and fine-tune ({FINETUNE_STEPS} steps): "
         f"{t_distill:.1f} s; launches through the Testbed: K1 {launches[fused_mlp.K1]}, K2 {launches[fused_mlp.K2]}; "
         + "; ".join(f"{label}: K1 224x224x96 alpha {a['alpha']:.3e} rgb {a['rgb']:.3e} ({a['share']:.6f} of the rays "
                     f"within {K1_TOL}), staged 640x480 (K2) alpha {b['alpha']:.3e} rgb {b['rgb']:.3e} "
                     f"({b['share']:.6f})" for label, (a, b) in errs.items())
-        + "; K1 against the exact sums, kernel / plain: " + ", ".join(
-            f"{k} {to_exact[0][k]:.3e} / {to_exact[1][k]:.3e}" for k in ("alpha", "rgb"))
-        + f", share within {K1_TOL} {to_exact[0]['share']:.6f} / {to_exact[1]['share']:.6f}")
+        + "; against the exact sums, kernel / plain: " + "; ".join(
+            f"{name} " + ", ".join(f"{k} {te[0][k]:.3e} / {te[1][k]:.3e}" for k in ("alpha", "rgb"))
+            + f", share within {K1_TOL} {te[0]['share']:.6f} / {te[1]['share']:.6f}"
+            for name, te in (("K1", to_exact), ("staged", staged_to_exact))))
     shipped = Testbed(device=device)
     shipped.set_baked_field(load_distilled(REPO / "assets" / "mesh_world" / "field.npz", device=device))
     meta = json.loads((REPO / "assets" / "mesh_world" / "meta.json").read_text())
@@ -1539,17 +1596,299 @@ def phase_student(device, cap, tb, teacher_psnr, gate=True):
         log("[student] not gated here: " + "; ".join(failed))
     check(not (failed and gate), "; ".join(failed))
     k1_err, staged_err = (max(max(e[i]["alpha"], e[i]["rgb"]) for e in errs.values()) for i in (0, 1))
-    return launches, k1_err, staged_err
+    return launches, k1_err, staged_err, rays
 
 
 def phase_assets(device, gate=True):
-    """Phases 17-20, each timed; returns phase 20's launch counts and the
-    student's largest K1 and staged-render errors against the plain versions."""
+    """Phases 17-20, each timed; returns phase 20's launch counts, the
+    student's largest K1 and staged-render errors against the plain versions,
+    and K1's 224x224 ray set (the student is saved in ASSET_WORKDIR)."""
     cap = timed_phase("phase 17, the capture", phase_capture, device)
     field, teacher_psnr = timed_phase("phase 18, NeRF training at full width", phase_train, device, cap)
     tb = timed_phase("phase 19, snapshot and bake", phase_bake, device, cap, field)
     return timed_phase("phase 20, distil, fine-tune, render the student", phase_student, device, cap, tb,
                        teacher_psnr, gate)
+
+
+# ------------------------------------------------------------ phases 21-25 --
+# The SfM model of the mesh world rebuilt on the card through the port's asset
+# subcommands (pixtrack_tpu_torch.pipelines.cli, the obj pipeline of
+# scripts_dev/build_mesh_bench_assets.py:87-140: make_house_obj, sfm-from-obj,
+# train-nerf, then nerf-sfm and augment), and the mesh world tracked over it.
+# The rig is the shipped one at full width: 42 views of 448 x 448, focal 450.
+# Phase 22's reference is the JAX package's model of the same rig on the CPU
+# (scripts_dev/sfm_from_obj_jax.py writes its points to SFM_JAX_POINTS: 1137
+# points, mean reprojection error 0.614 px; the shipped TPU-built model is no
+# exact reference: only 69.3 % of JAX's points lie within 1e-3 of one of its
+# 1112). The card must come within SFM_COUNT_TOL of JAX's count and put
+# SFM_NEAR_SHARE of its points within SFM_NEAR_TOL of JAX's, both ways; on the
+# CPU the port's model equals JAX's to 1e-6 (all 1137 points).
+SFM_JAX_POINTS = REPO / "scripts_dev" / "sfm_from_obj_jax.npz"
+SFM_COUNT_TOL, SFM_NEAR_TOL, SFM_NEAR_SHARE = 0.03, 1e-4, 0.90
+# Phase 24. The shipped aug_sfm's rolled poses were rolled on the TPU, whose
+# default matmul precision runs f32 products through bf16 passes: the JAX
+# package's own augmentation on the CPU lands up to 5.03e-4 (quaternion) and
+# 2.04e-4 (translation) from them. So the rolled poses are held to the exact
+# f64 roll of the rig's poses (both packages roll in f32: measured 1e-7 on the
+# CPU) and to the shipped ones at AUG_SHIPPED_TOL; the 42 rig poses to the
+# shipped ones at 1e-5.
+AUG_EXACT_TOL, AUG_SHIPPED_TOL = 1e-6, 1e-3
+# train-nerf before nerf-sfm, cut from the CLI's 10000 steps to fit the script
+# (phase 18 measures training at 1000 steps): the recipe's 4096 rays x 48 + 16.
+NERF_SFM_TRAIN_STEPS = 300
+# Phase 25: the JAX package's fused closed loop over ITS model of the same rig,
+# augmented as the shipped build (scripts_dev/fused_mesh_rebuilt_jax_chains.py,
+# CPU, UNet bf16, the six perturbed cold starts): chains 2, 2, 7, 7, 2, 7 of
+# 20, each at a rotation median of 12.28 deg (its cold start costs 0.0760, so
+# the success gate is 0.0836 where the shipped model's is 0.0905, and frames 3
+# and 8 miss it); the open loop 20/20 at 1.37 deg. So JAX misses phase 7's
+# closed-loop gates there and the card is held to JAX's own result, the
+# variants' rule, chain by chain: both sets of chains ranked by successes, the
+# card's i-th chain at the i-th JAX chain's successes less one and at its
+# rotation median plus 0.5 deg; JAX passes phase 7's open-loop gate, and so
+# must the card.
+JAX_REBUILT_CHAINS = ((2, 12.28), (2, 12.28), (7, 12.28), (7, 12.28), (2, 12.28), (7, 12.28))  # successes, median
+REBUILT_GATES = {"ranked": [(ok - 1, med + 0.5) for ok, med in sorted(JAX_REBUILT_CHAINS, key=lambda c: (-c[0], c[1]))],
+                 "open_ok": MESH_MIN_OK, "open_med": MESH_MED_GATE_DEG}
+
+
+@contextlib.contextmanager
+def sfm_stage_split(split: dict, render: str):
+    """Time the SfM stages' parts inside the block (host clock, synchronised):
+    the adds go to ``split`` by part. ``render`` names the stage's renderer
+    ("mesh" or "nerf"). Each part is timed by wrapping a function that its
+    caller looks up through its module at call time; a part that no call
+    reached fails the phase, so a wrapper that misses its caller cannot read 0."""
+    import torch
+
+    from pixtrack_tpu_torch.mapping import mesh_render
+    from pixtrack_tpu_torch.nerf import testbed
+    from pixtrack_tpu_torch.pipelines import assets
+    from pixtrack_tpu_torch.sfm.scene import SceneModel
+    from pixtrack_tpu_torch.tracking import render_bridge
+
+    renders = {"mesh": [(mesh_render, "render_mesh", "render")],
+               "nerf": [(render_bridge, "render_nerf_view", "render"),
+                        (testbed, "initialize_testbed", "load + bake")]}[render]
+    parts = renders + [(assets, "detect_and_describe", "detect + describe"),
+                       (assets, "match_descriptors", "match + epipolar"), (assets, "epipolar_filter", "match + epipolar"),
+                       (assets, "triangulate_scene", "tracks + triangulation"), (mesh_render, "write_png", "write"),
+                       (SceneModel, "save", "write")]
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in parts]
+    reached = set()
+
+    def timed(fn, name, part):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            split[part] = split.get(part, 0.0) + time.perf_counter() - t0
+            reached.add(name)
+            return out
+        return run
+
+    for (obj, name, fn), (_, _, part) in zip(saved, parts):
+        setattr(obj, name, timed(fn, name, part))
+    try:
+        yield split
+    finally:
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
+    missed = [name for _, name, _ in parts if name not in reached]
+    check(not missed, f"SfM stage split: no call reached {missed}: a caller no longer looks them up at call time")
+
+
+def nearest_shares(a, b, tols=(1e-3, 1e-4)):
+    """The share of the points of ``a`` within each tolerance of a point of ``b``."""
+    from scipy.spatial import cKDTree
+
+    d = cKDTree(b).query(a)[0]
+    return {t: float(np.mean(d <= t)) for t in tols}
+
+
+def phase_house(work):
+    """make_house_obj as the shipped build called it, written by the port."""
+    from pixtrack_tpu_torch.mapping.mesh_render import read_png
+    from pixtrack_tpu_torch.mapping.procedural import make_house_obj
+
+    src = REPO / "assets" / "mesh_world" / "src"
+    obj = make_house_obj(work / "src", seed=7, size=0.3, tile=96)
+    same_obj = obj.read_text() == (src / "house.obj").read_text()
+    same_tex = np.array_equal(read_png(work / "src" / "house_tex.png"), read_png(src / "house_tex.png"))
+    log(f"[house] make_house_obj(seed=7, size=0.3, tile=96): house.obj equal to the shipped text {same_obj}, "
+        f"atlas pixels equal {same_tex}")
+    check(same_obj and same_tex, "house: the port's procedural house differs from the shipped one")
+    return obj
+
+
+def _shipped_pose_error(scene, shipped) -> float:
+    """The largest difference of qvec / tvec between images of one name."""
+    k = [shipped._imgidx[shipped.name2id[n]] for n in scene.names]
+    return float(max(np.abs(scene.qvecs - shipped.qvecs[k]).max(), np.abs(scene.tvecs - shipped.tvecs[k]).max()))
+
+
+def phase_sfm_from_obj(work, obj):
+    """``sfm-from-obj`` on the shipped rig, through the CLI, on the card."""
+    from pixtrack_tpu_torch.pipelines import assets, cli
+    from pixtrack_tpu_torch.sfm.scene import SceneModel
+
+    split = {}
+    t0 = time.perf_counter()
+    with sfm_stage_split(split, "mesh"):
+        cli.main(["sfm-from-obj", "--object_path", str(work), "--obj", str(obj), "--image_size", "448",
+                  "--subdiv", "1"])
+    wall = time.perf_counter() - t0
+    scene = SceneModel.load(assets.layout(work)["ref_sfm"])
+    shipped = SceneModel.load(REPO / "assets" / "mesh_world" / "aug_sfm")
+    jax_xyz = np.load(SFM_JAX_POINTS)["xyz"]
+    to_jax, from_jax = nearest_shares(scene.xyz, jax_xyz), nearest_shares(jax_xyz, scene.xyz)
+    to_ship, from_ship = nearest_shares(scene.xyz, shipped.xyz), nearest_shares(shipped.xyz, scene.xyz)
+    pose_err = _shipped_pose_error(scene, shipped)
+    lengths = np.bincount(scene.track_lengths)
+    log(f"[sfm-from-obj] {len(scene.image_ids)} views, {len(scene.point_ids)} points (JAX on the CPU "
+        f"{len(jax_xyz)}, the shipped TPU model 1112) in {wall:.1f} s: "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in split.items())
+        + f"; mean reprojection error {scene.point_errors.mean():.3f} px (JAX 0.614); track lengths "
+        f"{ {int(n): int(c) for n, c in enumerate(lengths) if c} }; poses vs the shipped model's {pose_err:.2e}")
+    log(f"[sfm-from-obj] points within 1e-3 / 1e-4 of JAX's model: {to_jax[1e-3]:.4f} / {to_jax[1e-4]:.4f}, JAX's "
+        f"within them of the card's: {from_jax[1e-3]:.4f} / {from_jax[1e-4]:.4f}; against the shipped model (no "
+        f"gate): {to_ship[1e-3]:.4f} / {to_ship[1e-4]:.4f}, the shipped within them of the card's: "
+        f"{from_ship[1e-3]:.4f} / {from_ship[1e-4]:.4f}")
+    check(len(scene.image_ids) == 42, "sfm-from-obj: not 42 views")
+    check(pose_err <= 1e-5, f"sfm-from-obj: the rig's poses differ from the shipped model's by {pose_err:.2e}")
+    check(abs(len(scene.point_ids) - len(jax_xyz)) <= SFM_COUNT_TOL * len(jax_xyz),
+          f"sfm-from-obj: {len(scene.point_ids)} points against JAX's {len(jax_xyz)}")
+    check(min(to_jax[SFM_NEAR_TOL], from_jax[SFM_NEAR_TOL]) >= SFM_NEAR_SHARE,
+          f"sfm-from-obj: shares within {SFM_NEAR_TOL} of JAX's points {to_jax[SFM_NEAR_TOL]:.4f} / "
+          f"{from_jax[SFM_NEAR_TOL]:.4f}")
+    return scene
+
+
+def phase_nerf_sfm(work, ref_points: int):
+    """``train-nerf`` (cut) and ``nerf-sfm`` through the CLI: the views
+    re-rendered from the baked hash field (no K1 or K2) and triangulated."""
+    import importlib.util
+
+    from pixtrack_tpu_torch.geometry.nerf_transform import NerfTransform
+    from pixtrack_tpu_torch.nerf import fused_mlp
+    from pixtrack_tpu_torch.pipelines import assets, cli
+    from pixtrack_tpu_torch.sfm.scene import SceneModel
+
+    paths = assets.layout(work)
+    fused_mlp.reset_launch_counts()
+    t0 = time.perf_counter()
+    cli.main(["train-nerf", "--object_path", str(work), "--n_steps", str(NERF_SFM_TRAIN_STEPS), "--batch_rays",
+              "4096", "--n_coarse", "48", "--n_fine", "16", "--save_every", "0"])
+    t_train = time.perf_counter() - t0
+    has_h5 = importlib.util.find_spec("h5py") is not None
+    split = {}
+    t0 = time.perf_counter()
+    with sfm_stage_split(split, "nerf"):
+        cli.main(["nerf-sfm", "--object_path", str(work), "--spp", "2"] + ([] if has_h5 else ["--no_h5"]))
+    t_sfm = time.perf_counter() - t0
+    launches = {k: fused_mlp.launch_count(k) for k in (fused_mlp.K1, fused_mlp.K2)}
+    nerf = SceneModel.load(paths["nerf_sfm"])
+    tf, shipped = NerfTransform.load(paths["nerf2sfm"]), NerfTransform.load(REPO / "assets" / "mesh_world" /
+                                                                            "nerf2sfm.pkl")
+    tf_err = max(float(np.abs(np.asarray(getattr(tf, f)) - np.asarray(getattr(shipped, f))).max())
+                 for f in ("centroid", "avglen", "R", "totp", "up"))
+    log(f"[nerf-sfm] train-nerf {NERF_SFM_TRAIN_STEPS} steps (cut from 10000; 4096 rays x 48 + 16) {t_train:.1f} s; "
+        f"nerf-sfm (spp 2, h5 files {'written' if has_h5 else 'off: this machine has no h5py'}) {t_sfm:.1f} s: "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in split.items())
+        + f"; {len(nerf.image_ids)} views, {len(nerf.point_ids)} points (phase 22: {ref_points}), mean reprojection "
+        f"error {nerf.point_errors.mean():.3f} px; nerf2sfm.pkl vs the shipped one {tf_err:.2e}; launches K1 "
+        f"{launches[fused_mlp.K1]}, K2 {launches[fused_mlp.K2]}")
+    check(paths["transforms"].exists() and paths["nerf2sfm"].exists(), "nerf-sfm: transforms.json or nerf2sfm.pkl missing")
+    check(tf_err <= 1e-5, f"nerf-sfm: nerf2sfm.pkl differs from the shipped one by {tf_err:.2e}")
+    check(launches == {fused_mlp.K1: 0, fused_mlp.K2: 0}, f"nerf-sfm: kernel launches {launches}")
+    check(len(nerf.point_ids) >= ref_points / 2, f"nerf-sfm: {len(nerf.point_ids)} points")
+    return launches
+
+
+def rolled_poses_f64(scene, angles=tuple(range(30, 360, 30))):
+    """{augmented name: (qvec, tvec)} of every original image of ``scene``
+    rolled about its optical axis, in f64 numpy (scipy's quaternion, w >= 0):
+    the exact reference of the augmentation's poses."""
+    from scipy.spatial.transform import Rotation
+
+    out = {}
+    for k, name in enumerate(scene.names):
+        R = Rotation.from_quat(np.roll(scene.qvecs[k], -1)).as_matrix()
+        c2w_R, c2w_t = R.T, -R.T @ scene.tvecs[k]
+        stem, _, ext = name.rpartition(".")
+        for a in angles:
+            c, s = np.cos(np.deg2rad(a)), np.sin(np.deg2rad(a))
+            Rn = (c2w_R @ np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]])).T
+            q = np.roll(Rotation.from_matrix(Rn).as_quat(), 1)
+            out[f"{stem}_rot{a:03d}.{ext}"] = (q if q[0] >= 0 else -q, -Rn @ c2w_t)
+    return out
+
+
+def phase_augment(work, ref):
+    """``augment`` of phase 22's ref_sfm, as the shipped build augmented it
+    (it never ran nerf-sfm): nerf_sfm is removed first, so that augment falls
+    back to ref_sfm. The 42 rig poses must equal the shipped ones to 1e-5 and
+    the 462 rolled ones the exact (f64) roll of them to AUG_EXACT_TOL; the
+    shipped rolled poses were rolled on the TPU and are reported beside."""
+    import pickle
+    import shutil
+    import sqlite3
+
+    from pixtrack_tpu_torch.pipelines import assets, cli
+    from pixtrack_tpu_torch.sfm.scene import SceneModel
+
+    paths = assets.layout(work)
+    shutil.rmtree(paths["nerf_sfm"])
+    t0 = time.perf_counter()
+    cli.main(["augment", "--object_path", str(work)])
+    wall = time.perf_counter() - t0
+    aug = SceneModel.load(paths["aug_sfm"])
+    shipped = SceneModel.load(REPO / "assets" / "mesh_world" / "aug_sfm")
+    same_names = sorted(aug.names) == sorted(shipped.names)
+    rolled = rolled_poses_f64(ref)
+    exact_err = max(max(min(np.abs(aug.qvecs[aug._imgidx[aug.name2id[n]]] - sgn * q).max() for sgn in (1, -1)),
+                        np.abs(aug.tvecs[aug._imgidx[aug.name2id[n]]] - t).max()) for n, (q, t) in rolled.items())
+    orig = [n for n in aug.names if n not in rolled]
+    rig_err = _shipped_pose_error(SceneModel(aug.cameras, {aug.name2id[n]: aug.images[aug.name2id[n]] for n in orig},
+                                             {}), shipped)
+    ship_err = _shipped_pose_error(aug, shipped) if same_names else float("inf")
+    with contextlib.closing(sqlite3.connect(str(paths["aug_db"]))) as conn:
+        n_db = conn.execute("SELECT COUNT(*) FROM images").fetchone()[0]
+    with open(paths["aug_sfm"] / "covis.pkl", "rb") as f:
+        covis = pickle.load(f)
+    log(f"[augment] {len(aug.image_ids)} images ({len(aug.point_ids)} points) in {wall:.1f} s; names equal to the "
+        f"shipped aug_sfm's {same_names}; the {len(orig)} rig poses vs the shipped ones {rig_err:.2e}, the "
+        f"{len(rolled)} rolled ones vs their exact (f64) roll {exact_err:.2e} and vs the shipped (rolled on the TPU) "
+        f"{ship_err:.2e} (JAX on the CPU: 5.03e-04); database.db holds {n_db} images; covis.pkl {len(covis)} entries")
+    check(len(aug.image_ids) == 504 and same_names, f"augment: {len(aug.image_ids)} images, names {same_names}")
+    check(rig_err <= 1e-5 and exact_err <= AUG_EXACT_TOL, f"augment: poses {rig_err:.2e} / {exact_err:.2e}")
+    check(ship_err <= AUG_SHIPPED_TOL, f"augment: rolled poses {ship_err:.2e} from the shipped ones")
+    check(n_db == 504 and len(covis) == 504, f"augment: database {n_db} images, covis {len(covis)}")
+    return paths["aug_sfm"]
+
+
+def phase_rebuild(device):
+    """Phases 21-25, each timed, in a work directory of their own; returns
+    phase 23's K1 / K2 launches, and phase 25's results and K1 launches."""
+    import tempfile
+
+    from pixtrack_tpu_torch.nerf import fused_mlp
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sfm_") as tmp:
+        work = Path(tmp)
+        obj = timed_phase("phase 21, the procedural house", phase_house, work)
+        scene = timed_phase("phase 22, sfm-from-obj", phase_sfm_from_obj, work, obj)
+        nerf_sfm_launches = timed_phase("phase 23, train-nerf and nerf-sfm", phase_nerf_sfm, work,
+                                        len(scene.point_ids))
+        aug_sfm = timed_phase("phase 24, augment", phase_augment, work, scene)
+        fused_mlp.reset_launch_counts()
+        _, _, mesh, _ = timed_phase("phase 25, the mesh world over the card-built model", phase_mesh, device,
+                                    aug_sfm=aug_sfm, gates=REBUILT_GATES, label="rebuilt")
+        launches = fused_mlp.launch_count(fused_mlp.K1)
+    log(f"[rebuilt] closed loop over the card-built model: chains {mesh['chains']} (JAX on its own model "
+        f"{[ok for ok, _ in JAX_REBUILT_CHAINS]}; phase 7 on the shipped model above), open loop {mesh['open']}/20 "
+        f"(JAX 20/20)")
+    return nerf_sfm_launches, mesh, launches
 
 
 # -------------------------------------------------------------------- main --
@@ -1667,7 +2006,10 @@ def main() -> int:
     timed_phase("phase 16, the optimizer trace", phase_debug_trace, device, assets)
 
     # phases 17-20: the asset path, the student's renders counted
-    asset_launches, student_k1_err, student_staged_err = phase_assets(device)
+    asset_launches, student_k1_err, student_staged_err, _ = phase_assets(device)
+
+    # phases 21-25: the SfM model rebuilt through the asset subcommands, tracked
+    nerf_sfm_launches, rebuilt, rebuilt_k1 = phase_rebuild(device)
     log("[launches] phase 12 (jittered renders, spp=4): K2 "
         + ", ".join(f"{n} at {w}x{h}" for (w, h), n in jitter_launches.items()) + "; phases 13-15 (K1, K2): "
         + ", ".join(f"{name} {n[fused_mlp.K1]}, {n[fused_mlp.K2]}" for name, n in variant_launches.items()))
@@ -1682,7 +2024,9 @@ def main() -> int:
             "launches": fused_launches[fused_mlp.K1],
             "launches_by_path": {"fused frames": fused_launches[fused_mlp.K1],
                                  **{name: n[fused_mlp.K1] for name, n in variant_launches.items()},
-                                 "card-built student": asset_launches[fused_mlp.K1]},
+                                 "card-built student": asset_launches[fused_mlp.K1],
+                                 "nerf-sfm (phase 23)": nerf_sfm_launches[fused_mlp.K1],
+                                 "fused frames over the card-built model (phase 25)": rebuilt_k1},
             "max_abs_err": max(max(r["err"] for r in k1), student_k1_err),
             "ms": main_shape["ms"],
             "plain_ms": main_shape["plain_ms"],
@@ -1698,7 +2042,8 @@ def main() -> int:
             "launches": step_launches[fused_mlp.K2],
             "launches_by_path": {"stepwise": step_launches[fused_mlp.K2],
                                  "jittered renders": sum(jitter_launches.values()),
-                                 "card-built student": asset_launches[fused_mlp.K2]},
+                                 "card-built student": asset_launches[fused_mlp.K2],
+                                 "nerf-sfm (phase 23)": nerf_sfm_launches[fused_mlp.K2]},
             "max_abs_err": max(k2["err"], student_staged_err),
             "ms": k2["ms"],
             "plain_ms": k2["plain_ms"],
@@ -1707,7 +2052,8 @@ def main() -> int:
             "library_ms": None,
         },
     ]}))
-    log(f"[summary] {smi}: blob FPS {blob['fps']:.2f}, mesh closed-loop FPS {mesh['fps']:.2f}")
+    log(f"[summary] {smi}: blob FPS {blob['fps']:.2f}, mesh closed-loop FPS {mesh['fps']:.2f}, over the "
+        f"card-built model {rebuilt['fps']:.2f}")
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                             "count": torch.cuda.device_count()}}))
     return 0

@@ -1,6 +1,8 @@
-"""The device the port's entry points run on."""
+"""The device the port's entry points run on, and its f32 arithmetic."""
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -16,3 +18,17 @@ def resolve(device=None) -> torch.device:
             "no CUDA device: the port runs on an NVIDIA GPU; pass device='cpu' to run it on the CPU"
         )
     return dev
+
+
+@contextlib.contextmanager
+def true_f32():
+    """cuDNN convolutions and cuBLAS products in true f32 inside the block:
+    both may otherwise run in TF32 on the card (cuDNN does by default), and
+    the mapping stages' keypoints and points are compared with the JAX
+    package's f32 ones. The flags are restored on exit."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved

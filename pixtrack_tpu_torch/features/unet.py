@@ -7,12 +7,19 @@ flax checkpoint name for name. The public layout stays NHWC like the JAX
 model; inside, the network runs NCHW.
 
 Matched to flax: GroupNorm(min(8, C)) with epsilon 1e-6 (torch's default is
-1e-5); ``Up`` concatenates ``[upsampled, skip]``; the nearest 2x upsample is
-exact at inputs that are multiples of 16. Parameters stay f32 and only the
-activations take the model's ``dtype``, as flax's ``dtype``/``param_dtype``
-split does: a convolution rounds its weights to ``dtype`` and adds the
-rounded bias to its rounded output; GroupNorm normalises, scales and shifts
-in f32 with f32 parameters and rounds the result to ``dtype``.
+1e-5) and flax's fast variance E[x^2] - E[x]^2; ``Up`` concatenates
+``[upsampled, skip]``; the nearest 2x upsample is exact at inputs that are
+multiples of 16. Parameters stay f32 and only the activations take the
+model's ``dtype``, as flax's ``dtype``/``param_dtype`` split does.
+
+The roundings are XLA's, not one per op: XLA (``xla_allow_excess_precision``,
+on by default) keeps a bf16 op's result in f32 for the consumers it fuses
+with. A convolution's output is rounded to ``dtype`` and its rounded bias
+added in f32, unrounded; GroupNorm takes its statistics from that sum
+rounded to ``dtype`` but normalises the unrounded sum, and rounds its
+result; the heads' features and confidences are the unrounded f32 values
+(``scripts_dev/unet_bf16_rounding.py`` reads the compiled HLO's effect
+layer by layer). In f32 every rounding is the identity.
 """
 
 from __future__ import annotations
@@ -31,20 +38,32 @@ _FLAX_GN_EPS = 1e-6
 
 
 class Conv2d(nn.Conv2d):
-    """flax ``nn.Conv(dtype=...)``: weights and bias rounded to the input's
-    dtype, the bias added after the convolution's own rounding."""
+    """flax ``nn.Conv(dtype=...)`` as XLA runs it: weights and bias rounded to
+    the input's dtype, the convolution's output rounded to it, the bias added
+    in f32. Returns the f32 sum, unrounded."""
 
     def forward(self, x):
         y = self._conv_forward(x, self.weight.to(x.dtype), None)
-        return y + self.bias.to(x.dtype)[:, None, None]
+        return y.float() + self.bias.to(x.dtype).float()[:, None, None]
 
 
 class GroupNorm(nn.GroupNorm):
-    """flax ``nn.GroupNorm(dtype=...)``: statistics, normalisation, scale and
-    shift in f32, the result in the input's dtype."""
+    """flax ``nn.GroupNorm(dtype=...)`` as XLA runs it on a convolution's
+    unrounded f32 output ``y``: the statistics of ``y`` rounded to ``dtype``
+    (fast variance, each mean a sum times the reciprocal of the count), then
+    ``(y - mean) * (rsqrt(var + eps) * scale) + bias`` in f32, rounded to
+    ``dtype``."""
 
-    def forward(self, x):
-        return F.group_norm(x.float(), self.num_groups, self.weight, self.bias, self.eps).to(x.dtype)
+    def forward(self, y, dtype):
+        B, C = y.shape[:2]
+        per = C // self.num_groups
+        yr = y.to(dtype).float().reshape(B, self.num_groups, -1)
+        inv_n = 1.0 / yr.shape[-1]
+        mean = yr.sum(-1) * inv_n
+        var = torch.clamp((yr * yr).sum(-1) * inv_n - mean * mean, min=0.0)
+        mul = torch.rsqrt(var + self.eps).repeat_interleave(per, 1) * self.weight
+        out = (y - mean.repeat_interleave(per, 1)[..., None, None]) * mul[..., None, None]
+        return (out + self.bias[:, None, None]).to(dtype)
 
 
 class ConvBlock(nn.Module):
@@ -54,7 +73,7 @@ class ConvBlock(nn.Module):
         self.GroupNorm_0 = GroupNorm(min(8, cout), cout, eps=_FLAX_GN_EPS)
 
     def forward(self, x):
-        return F.relu(self.GroupNorm_0(self.Conv_0(x)))
+        return F.relu(self.GroupNorm_0(self.Conv_0(x), x.dtype))
 
 
 class Down(nn.Module):
@@ -87,7 +106,7 @@ class Head(nn.Module):
         self.conf = Conv2d(cin, 1, 1)
 
     def forward(self, x):
-        return self.feat(x).float(), torch.sigmoid(self.conf(x)[:, 0]).float()
+        return self.feat(x), torch.sigmoid(self.conf(x)[:, 0])
 
 
 class UNetExtractor(nn.Module):

@@ -10,7 +10,7 @@ from pixtrack_tpu_torch.geometry.rotation import (
     so3_log,
 )
 from pixtrack_tpu_torch.geometry.pose import Pose
-from pixtrack_tpu_torch.geometry.camera import CAMERA_MODEL_IDS, Camera
+from pixtrack_tpu_torch.geometry.camera import CAMERA_MODEL_IDS, CAMERA_MODEL_NUM_PARAMS, Camera
 
 __all__ = [
     "so3_hat",
@@ -23,4 +23,5 @@ __all__ = [
     "Pose",
     "Camera",
     "CAMERA_MODEL_IDS",
+    "CAMERA_MODEL_NUM_PARAMS",
 ]

@@ -21,6 +21,8 @@ CAMERA_MODEL_IDS = {
     "OPENCV": 4,
 }
 CAMERA_MODEL_NAMES = {v: k for k, v in CAMERA_MODEL_IDS.items()}
+# number of params per COLMAP model
+CAMERA_MODEL_NUM_PARAMS = {0: 3, 1: 4, 2: 4, 3: 5, 4: 8}
 
 
 def _vec(values, device) -> torch.Tensor:
@@ -89,6 +91,18 @@ class Camera:
         lt = torch.as_tensor(left_top, dtype=self.c.dtype, device=self.c.device)
         size = torch.as_tensor(size, dtype=self.size.dtype, device=self.size.device)
         return Camera(size=size, f=self.f, c=self.c - lt, k=self.k)
+
+    def K(self) -> torch.Tensor:
+        """3x3 intrinsic matrix (index-centred convention)."""
+        fx, fy = self.f[..., 0], self.f[..., 1]
+        cx, cy = self.c[..., 0], self.c[..., 1]
+        z, o = torch.zeros_like(fx), torch.ones_like(fx)
+        return torch.stack([torch.stack([fx, z, cx], -1), torch.stack([z, fy, cy], -1),
+                            torch.stack([z, z, o], -1)], dim=-2)
+
+    def fov_deg(self, axis: int = 0) -> torch.Tensor:
+        """Field of view in degrees along ``axis`` (0 = width, 1 = height)."""
+        return torch.atan2(self.size[..., axis] / 2.0, self.f[..., axis]) * 2.0 * 180.0 / torch.pi
 
     # -- projection -----------------------------------------------------------
     def project(self, p_cam: torch.Tensor, eps: float = 1e-4):

@@ -29,6 +29,11 @@ class Pose:
     t: torch.Tensor
 
     @classmethod
+    def identity(cls, batch_shape=(), dtype=torch.float32, device=None) -> "Pose":
+        R = torch.eye(3, dtype=dtype, device=device).expand(*batch_shape, 3, 3).clone()
+        return cls(R=R, t=torch.zeros((*batch_shape, 3), dtype=dtype, device=device))
+
+    @classmethod
     def from_Rt(cls, R, t, device=None) -> "Pose":
         return cls(R=_as_tensor(R, device), t=_as_tensor(t, device))
 
@@ -52,9 +57,13 @@ class Pose:
         """First-order se(3) retraction ``R = exp(w), t = v`` of ``(w, v)``."""
         return cls(R=rot.so3_exp(delta[..., :3]), t=delta[..., 3:])
 
+    def compose(self, other: "Pose") -> "Pose":
+        """``self * other``: apply ``other`` first, then ``self``."""
+        return Pose(R=self.R @ other.R, t=(self.R @ other.t[..., None])[..., 0] + self.t)
+
     def __matmul__(self, other):
         if isinstance(other, Pose):
-            return Pose(R=self.R @ other.R, t=(self.R @ other.t[..., None])[..., 0] + self.t)
+            return self.compose(other)
         return self.transform(other)
 
     def inv(self) -> "Pose":
@@ -74,6 +83,10 @@ class Pose:
         bottom = torch.zeros_like(top[..., :1, :])
         bottom[..., 0, 3] = 1.0
         return torch.cat([top, bottom], dim=-2)
+
+    def to_quat_t(self):
+        """(COLMAP quaternion (w, x, y, z) with w >= 0, translation)."""
+        return rot.rotmat_to_quat(self.R), self.t
 
     @property
     def center(self) -> torch.Tensor:

@@ -1,11 +1,11 @@
 """Textured-mesh loading, rasterisation and surface sampling (host numpy).
 
-Port of ``load_obj``, ``icosphere_directions``, ``look_at_rig_for_mesh``
-and ``render_mesh`` from ``pixtrack_tpu/mapping/mesh_render.py`` (the
-projection runs through the port's Pose and Camera), plus
-``sample_mesh_surface``. The texture is read
-by a small PNG decoder of its own, so nothing beyond numpy and the standard
-library is needed.
+Port of ``pixtrack_tpu/mapping/mesh_render.py`` (the projection runs
+through the port's Pose and Camera): ``load_obj``, the mapping rig,
+``render_mesh``, ``MeshTestbed`` and the obj pipeline's first stage
+``create_scene_from_mesh``; plus ``sample_mesh_surface``. Textures and
+renders are read and written by a small PNG codec of its own, so nothing
+beyond numpy and the standard library is needed.
 """
 
 from __future__ import annotations
@@ -14,12 +14,12 @@ import struct
 import zlib
 from itertools import combinations
 from pathlib import Path
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
 
-from pixtrack_tpu_torch.geometry import Pose
+from pixtrack_tpu_torch.geometry import Camera, Pose
 
 _PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
 
@@ -76,6 +76,29 @@ def read_png(path) -> np.ndarray:
         prev = _unfilter_row(int(raw[r, 0]), raw[r, 1:], prev, bpp)
         rows.append(prev)
     return np.stack(rows).reshape(height, width, bpp)
+
+
+def write_png(path, image: np.ndarray) -> None:
+    """uint8 (H, W), (H, W, 3) or (H, W, 4) -> an 8-bit PNG, channels stored
+    in the order given (RGB for an RGB image, as ``cv2.imwrite`` of its BGR
+    conversion stores it)."""
+    img = np.ascontiguousarray(image)
+    if img.dtype != np.uint8:
+        raise ValueError(f"write_png takes uint8, not {img.dtype}")
+    if img.ndim == 2:
+        img = img[..., None]
+    height, width, bpp = img.shape
+    ctype = {v: k for k, v in _PNG_CHANNELS.items()}[bpp]
+    raw = np.concatenate([np.zeros((height, 1), np.uint8), img.reshape(height, width * bpp)], axis=1)
+
+    def chunk(kind: bytes, payload: bytes) -> bytes:
+        return struct.pack(">I", len(payload)) + kind + payload + struct.pack(">I", zlib.crc32(kind + payload))
+
+    Path(path).write_bytes(
+        b"\x89PNG\r\n\x1a\n"
+        + chunk(b"IHDR", struct.pack(">IIBBBBB", width, height, 8, ctype, 0, 0, 0))
+        + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+        + chunk(b"IEND", b""))
 
 
 def load_obj(path) -> dict:
@@ -250,3 +273,94 @@ def render_mesh(mesh: dict, T_w2c, camera, background=(1.0, 1.0, 1.0), ambient: 
     if return_depth:
         return out, np.where(np.isfinite(zbuf), zbuf, 0.0).astype(np.float32)
     return out
+
+
+class MeshTestbed:
+    """The Testbed surface over the mesh rasteriser: exact reference renders
+    of a mesh object (Shade and Depth modes, exact intrinsics, alpha from the
+    z-buffer) wherever the trackers render through ``render_nerf_view``.
+    Assumes the identity NerfTransform, which it inverts to recover the
+    SfM-space pose from the NeRF-space camera matrix it is handed."""
+
+    def __init__(self, mesh: dict):
+        from types import SimpleNamespace
+
+        from pixtrack_tpu_torch.nerf.testbed import RenderMode, _AABB
+
+        self.mesh = mesh
+        self.render_mode = RenderMode.Shade
+        self.render_aabb = _AABB()
+        self.background_color = [1.0, 1.0, 1.0, 0.0]
+        self.snap_to_pixel_centers = True
+        self.fov_axis = 0
+        self.exposure = 0.0
+        self.shall_train = False
+        self.nerf = SimpleNamespace(sharpen=0.0, render_with_camera_distortion=False,
+                                    rendering_min_transmittance=1e-7)
+        self._fov_deg = 50.0
+        self.override_intrinsics = None
+        self._camera = np.eye(4)
+        self.n_coarse = 0  # accepted for Testbed parity; unused
+        self.n_fine = 0
+
+    @property
+    def fov(self) -> float:
+        return self._fov_deg
+
+    @fov.setter
+    def fov(self, deg: float) -> None:
+        self._fov_deg = float(deg)
+
+    def set_nerf_camera_matrix(self, m) -> None:
+        cam = np.eye(4)
+        cam[:3, :4] = np.asarray(m, np.float64)[:3, :4]
+        self._camera = cam
+
+    def render(self, width: int, height: int, spp: int = 1, linear: bool = True, seed: int = 0) -> np.ndarray:
+        from pixtrack_tpu_torch.geometry.nerf_transform import NerfTransform
+        from pixtrack_tpu_torch.nerf.testbed import RenderMode
+
+        c2w_sfm = NerfTransform.identity().pose_nerf_to_sfm(self._camera)
+        R = c2w_sfm[:3, :3].T
+        t = -R @ c2w_sfm[:3, 3]
+        T_w2c = Pose.from_Rt(R.astype(np.float32), t.astype(np.float32))
+        if self.override_intrinsics is not None:
+            fx, fy, cx, cy = self.override_intrinsics
+        else:
+            fx = fy = (width / 2.0) / np.tan(np.deg2rad(self._fov_deg) / 2.0)
+            cx, cy = (width - 1) / 2.0, (height - 1) / 2.0
+        camera = Camera.pinhole(fx, fy, cx, cy, width, height)
+        img, depth = render_mesh(self.mesh, T_w2c, camera, background=tuple(self.background_color[:3]),
+                                 return_depth=True)
+        alpha = (depth > 0).astype(np.float32)
+        if self.render_mode == RenderMode.Depth:
+            return np.concatenate([np.repeat(depth[..., None], 3, axis=-1), alpha[..., None]],
+                                  axis=-1).astype(np.float32)
+        return np.concatenate([img.astype(np.float32) / 255.0, alpha[..., None]], axis=-1)
+
+
+def create_scene_from_mesh(obj_path, image_size: int = 512, focal: float = 450.0, subdiv: int = 1,
+                           out_dir: Optional[Path] = None, max_keypoints: int = 1024, device=None):
+    """The obj pipeline's first stage: render the icosphere rig of a textured
+    OBJ (host), then detect, match and triangulate against the renderer's
+    poses on ``device`` (None is the CUDA card). Writes the renders to
+    ``out_dir`` when given. Returns (SceneModel, {image_id: uint8 image})."""
+    from pixtrack_tpu_torch.pipelines.assets import reconstruct_from_posed_views
+    from pixtrack_tpu_torch.sfm import colmap_io
+
+    mesh = load_obj(obj_path)
+    poses = look_at_rig_for_mesh(mesh["vertices"], subdiv=subdiv)
+    cam = Camera.pinhole(focal, focal, (image_size - 1) / 2, (image_size - 1) / 2, image_size, image_size)
+    cam_rec = colmap_io.CameraRecord(1, "PINHOLE", image_size, image_size,
+                                     np.array([focal, focal, image_size / 2, image_size / 2]))
+    images, pose_map, names = {}, {}, {}
+    for i, T in enumerate(poses):
+        images[i + 1] = render_mesh(mesh, T, cam, background=(1, 1, 1))
+        pose_map[i + 1] = T
+        names[i + 1] = f"mesh_{i:04d}.png"
+        if out_dir is not None:
+            Path(out_dir).mkdir(parents=True, exist_ok=True)
+            write_png(Path(out_dir) / names[i + 1], images[i + 1])
+    scene = reconstruct_from_posed_views(images, pose_map, cam_rec, names=names, max_keypoints=max_keypoints,
+                                         nms_radius=2, device=device)
+    return scene, images

@@ -1,7 +1,8 @@
 """COLMAP model IO: cameras/images/points3D in .bin and .txt formats.
 
-The readers of ``pixtrack_tpu/sfm/colmap_io.py``, copied: the port reads
-models and writes none, and has no native parser.
+The readers and writers of ``pixtrack_tpu/sfm/colmap_io.py``, copied (the
+port has no native parser): for the same records both packages write the
+same bytes.
 
 A from-scratch, numpy-vectorized implementation of the public COLMAP
 sparse-model format (the reference vendors COLMAP's own reader at
@@ -20,6 +21,8 @@ Format summary (public COLMAP spec):
 from __future__ import annotations
 
 import dataclasses
+import os
+import struct
 from pathlib import Path
 from typing import Dict, Tuple
 
@@ -111,6 +114,15 @@ def read_cameras_bin(path) -> Dict[int, CameraRecord]:
     return out
 
 
+def write_cameras_bin(cameras: Dict[int, CameraRecord], path) -> None:
+    parts = [struct.pack("<Q", len(cameras))]
+    for cam in cameras.values():
+        mid = COLMAP_MODEL_IDS[cam.model]
+        parts.append(struct.pack("<iiQQ", cam.camera_id, mid, cam.width, cam.height))
+        parts.append(np.asarray(cam.params, "<f8").tobytes())
+    Path(path).write_bytes(b"".join(parts))
+
+
 def read_cameras_txt(path) -> Dict[int, CameraRecord]:
     out = {}
     for line in Path(path).read_text().splitlines():
@@ -123,6 +135,14 @@ def read_cameras_txt(path) -> Dict[int, CameraRecord]:
             np.array([float(x) for x in tok[4:]]),
         )
     return out
+
+
+def write_cameras_txt(cameras: Dict[int, CameraRecord], path) -> None:
+    lines = ["# Camera list: CAMERA_ID MODEL WIDTH HEIGHT PARAMS[]"]
+    for cam in cameras.values():
+        p = " ".join(f"{float(x):.17g}" for x in cam.params)
+        lines.append(f"{cam.camera_id} {cam.model} {cam.width} {cam.height} {p}")
+    Path(path).write_text("\n".join(lines) + "\n")
 
 
 # ----------------------------------------------------------------- images ----
@@ -144,6 +164,23 @@ def read_images_bin(path) -> Dict[int, ImageRecord]:
         p3d = rows[:, 16:].copy().view("<i8").reshape(m)
         out[image_id] = ImageRecord(image_id, qvec, tvec, cam_id, name, xys, p3d)
     return out
+
+
+def write_images_bin(images: Dict[int, ImageRecord], path) -> None:
+    parts = [struct.pack("<Q", len(images))]
+    for im in images.values():
+        parts.append(struct.pack("<i", im.image_id))
+        parts.append(np.asarray(im.qvec, "<f8").tobytes())
+        parts.append(np.asarray(im.tvec, "<f8").tobytes())
+        parts.append(struct.pack("<i", im.camera_id))
+        parts.append(im.name.encode("utf-8") + b"\x00")
+        m = len(im.xys)
+        parts.append(struct.pack("<Q", m))
+        rows = np.empty((m, 24), np.uint8)
+        rows[:, :16] = np.ascontiguousarray(im.xys, "<f8").view(np.uint8).reshape(m, 16)
+        rows[:, 16:] = np.ascontiguousarray(im.point3D_ids, "<i8").view(np.uint8).reshape(m, 8)
+        parts.append(rows.tobytes())
+    Path(path).write_bytes(b"".join(parts))
 
 
 def read_images_txt(path) -> Dict[int, ImageRecord]:
@@ -170,6 +207,20 @@ def read_images_txt(path) -> Dict[int, ImageRecord]:
     return out
 
 
+def write_images_txt(images: Dict[int, ImageRecord], path) -> None:
+    lines = [
+        "# Image list: IMAGE_ID QW QX QY QZ TX TY TZ CAMERA_ID NAME",
+        "#             POINTS2D[] as (X, Y, POINT3D_ID)",
+    ]
+    for im in images.values():
+        q = " ".join(f"{float(x):.17g}" for x in im.qvec)
+        t = " ".join(f"{float(x):.17g}" for x in im.tvec)
+        lines.append(f"{im.image_id} {q} {t} {im.camera_id} {im.name}")
+        lines.append(" ".join(
+            f"{float(x):.17g} {float(y):.17g} {int(pid)}" for (x, y), pid in zip(im.xys, im.point3D_ids)))
+    Path(path).write_text("\n".join(lines) + "\n")
+
+
 # --------------------------------------------------------------- points3D ----
 def read_points3D_bin(path) -> Dict[int, Point3DRecord]:
     buf = _Buf(Path(path).read_bytes())
@@ -184,6 +235,22 @@ def read_points3D_bin(path) -> Dict[int, Point3DRecord]:
         track = buf.read(np.int32, 2 * L).copy().reshape(L, 2)
         out[pid] = Point3DRecord(pid, xyz, rgb, err, track[:, 0].copy(), track[:, 1].copy())
     return out
+
+
+def write_points3D_bin(points: Dict[int, Point3DRecord], path) -> None:
+    parts = [struct.pack("<Q", len(points))]
+    for p in points.values():
+        parts.append(struct.pack("<q", p.id))
+        parts.append(np.asarray(p.xyz, "<f8").tobytes())
+        parts.append(np.asarray(p.rgb, np.uint8).tobytes())
+        parts.append(struct.pack("<d", p.error))
+        L = len(p.image_ids)
+        parts.append(struct.pack("<Q", L))
+        track = np.empty((L, 2), "<i4")
+        track[:, 0] = p.image_ids
+        track[:, 1] = p.point2D_idxs
+        parts.append(track.tobytes())
+    Path(path).write_bytes(b"".join(parts))
 
 
 def read_points3D_txt(path) -> Dict[int, Point3DRecord]:
@@ -204,6 +271,16 @@ def read_points3D_txt(path) -> Dict[int, Point3DRecord]:
     return out
 
 
+def write_points3D_txt(points: Dict[int, Point3DRecord], path) -> None:
+    lines = ["# 3D point list: POINT3D_ID X Y Z R G B ERROR TRACK[] as (IMAGE_ID, POINT2D_IDX)"]
+    for p in points.values():
+        xyz = " ".join(f"{float(x):.17g}" for x in p.xyz)
+        rgb = " ".join(str(int(x)) for x in p.rgb)
+        track = " ".join(f"{int(i)} {int(j)}" for i, j in zip(p.image_ids, p.point2D_idxs))
+        lines.append(f"{p.id} {xyz} {rgb} {float(p.error):.17g} {track}")
+    Path(path).write_text("\n".join(lines) + "\n")
+
+
 # ------------------------------------------------------------- model reader ----
 def read_model(path, ext: str | None = None) -> Tuple[dict, dict, dict]:
     """Read a COLMAP model directory. Auto-detects .bin vs .txt."""
@@ -221,3 +298,16 @@ def read_model(path, ext: str | None = None) -> Tuple[dict, dict, dict]:
         read_images_txt(path / "images.txt"),
         read_points3D_txt(path / "points3D.txt"),
     )
+
+
+def write_model(cameras, images, points3D, path, ext: str = ".bin") -> None:
+    path = Path(path)
+    os.makedirs(path, exist_ok=True)
+    if ext == ".bin":
+        write_cameras_bin(cameras, path / "cameras.bin")
+        write_images_bin(images, path / "images.bin")
+        write_points3D_bin(points3D, path / "points3D.bin")
+    else:
+        write_cameras_txt(cameras, path / "cameras.txt")
+        write_images_txt(images, path / "images.txt")
+        write_points3D_txt(points3D, path / "points3D.txt")

@@ -7,6 +7,7 @@ host-side arrays (numpy, scipy.sparse) are unchanged; only ``Pose`` and
 
 from __future__ import annotations
 
+import pickle
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -40,13 +41,18 @@ class SceneModel:
         self.name2id = {nm: int(i) for nm, i in zip(self.names, self.image_ids)}
 
         self.point_ids = np.array(sorted(points3D.keys()), np.int64)
+        self._ptidx = {int(p): k for k, p in enumerate(self.point_ids)}
         m = len(self.point_ids)
         self.xyz = np.zeros((m, 3))
+        self.rgb = np.zeros((m, 3), np.uint8)
+        self.point_errors = np.zeros(m)
         self.track_lengths = np.zeros(m, np.int64)
         rows, cols = [], []
         for k, pid in enumerate(self.point_ids):
             p = points3D[int(pid)]
             self.xyz[k] = p.xyz
+            self.rgb[k] = p.rgb
+            self.point_errors[k] = p.error
             self.track_lengths[k] = len(p.image_ids)
             for iid in p.image_ids:
                 ii = self._imgidx.get(int(iid))
@@ -63,15 +69,25 @@ class SceneModel:
     def load(cls, path) -> "SceneModel":
         return cls(*colmap_io.read_model(path))
 
+    def save(self, path, ext: str = ".bin") -> None:
+        colmap_io.write_model(self.cameras, self.images, self.points3D, path, ext)
+
     def pose_w2c(self, image_id: int, device=None) -> Pose:
         k = self._imgidx[int(image_id)]
         return Pose.from_quat_t(
             self.qvecs[k].astype(np.float32), self.tvecs[k].astype(np.float32), device
         )
 
+    def poses_w2c(self, device=None) -> Pose:
+        """All image poses as one batched Pose (world-to-camera)."""
+        return Pose.from_quat_t(self.qvecs.astype(np.float32), self.tvecs.astype(np.float32), device)
+
     def camera(self, camera_id: int, device=None) -> Camera:
         rec = self.cameras[int(camera_id)]
         return Camera.from_colmap(rec.model, rec.params, rec.width, rec.height, device)
+
+    def camera_for_image(self, image_id: int, device=None) -> Camera:
+        return self.camera(self.images[int(image_id)].camera_id, device)
 
     def p3d_indices_for_images(
         self, image_ids: Sequence[int], min_track_length: int = 1
@@ -84,17 +100,29 @@ class SceneModel:
         seen = np.asarray(self.incidence[rows].sum(axis=0)).ravel() > 0
         return np.nonzero(seen & (self.track_lengths >= min_track_length))[0].astype(np.int64)
 
-    def covisibility_dict(self, threshold: int = 0) -> Dict[str, Dict[str, int]]:
-        """{name: {other_name: shared point count}} (the covis.pkl layout)."""
+    def images_for_p3d(self, point_id: int) -> np.ndarray:
+        """Image ids observing a 3D point."""
+        return self.points3D[int(point_id)].image_ids
+
+    def covisibility(self) -> sp.csr_matrix:
+        """(n_images x n_images) shared-point counts, zero diagonal."""
         cov = (self.incidence @ self.incidence.T).tocsr()
         cov.setdiag(0)
         cov.eliminate_zeros()
-        cov = cov.tocoo()
+        return cov
+
+    def covisibility_dict(self, threshold: int = 0) -> Dict[str, Dict[str, int]]:
+        """{name: {other_name: shared point count}} (the covis.pkl layout)."""
+        cov = self.covisibility().tocoo()
         out: Dict[str, Dict[str, int]] = {nm: {} for nm in self.names}
         for i, j, v in zip(cov.row, cov.col, cov.data):
             if v > threshold:
                 out[self.names[i]][self.names[j]] = int(v)
         return out
+
+    def save_covisibility(self, path) -> None:
+        with open(path, "wb") as f:
+            pickle.dump(self.covisibility_dict(), f)
 
     def pack_points(
         self, indices: np.ndarray, pad_to: Optional[int] = None, pad_multiple: int = 512

@@ -8,6 +8,16 @@ Prints chip_smoke.py's lines for those phases, each phase's wall time and
 the total; the student's kernels are compared with their plain versions and
 reported, not gated (chip_smoke.py gates them at its own step counts).
 
+Then it places K1's tail on the fine-tuned student: over the 224x224x96 ray
+set, each ray of K1 and of its plain version against the exact (f64) sums
+(chip_smoke.py phase 3's per-ray rule: the kernel's share of rays beyond
+5e-3 at most 1.5 times the plain version's plus 1e-4); and for the ray
+furthest from the exact sums through K1, its 96 samples evaluated three
+ways (K2, which runs the same network from csrc/distilled_mlp.cuh; the
+plain version; the exact sums) and each set composited in f64, beside K1's
+own output for the ray. If K2's samples composite to within 1e-3 of K1's
+output, K1's compositing is not the fault and the tail is the network's.
+
     python3 scripts_dev/asset_build_full.py [TRAIN_STEPS DISTILL_STEPS FINETUNE_STEPS]
 """
 
@@ -19,6 +29,59 @@ REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 
 import chip_smoke  # noqa: E402
+
+
+def trace_k1_tail(device, rays):
+    """K1's worst ray against the exact sums on the saved student, traced."""
+    import torch
+
+    from pixtrack_tpu_torch.nerf import fused_mlp
+    from pixtrack_tpu_torch.nerf.distill import load_distilled
+    from pixtrack_tpu_torch.nerf.render import _composite, _sample_stratified
+
+    student = load_distilled(chip_smoke.ASSET_WORKDIR / "field.npz", device=device)
+    o, d, tn, tf = rays
+    S, cut = 96, 1e-7
+    with torch.no_grad():
+        out = fused_mlp.fused_march_render(student, *rays, S, cut)
+        plain = fused_mlp.march_render_reference(student, *rays, S, cut)
+        exact = fused_mlp.march_render_reference(chip_smoke.ExactField(student), *rays, S, cut)
+
+        def per_ray(a, b):
+            return torch.maximum((a["alpha"] - b["alpha"]).abs(), (a["rgb"] - b["rgb"]).abs().amax(dim=1))
+
+        e_k, e_p = per_ray(out, exact), per_ray(plain, exact)
+        share_k, share_p = (float((e > chip_smoke.K1_TOL).float().mean()) for e in (e_k, e_p))
+        i = int(e_k.argmax())
+        # the ray's samples, where K1 and its plain version take them
+        ts = _sample_stratified(tn[i:i + 1], tf[i:i + 1], S)
+        x = (o[i][:, None] + ts * d[i][:, None]).clamp(0.0, 1.0).contiguous()
+        dn = d[i] / (d[i, 0] * d[i, 0] + d[i, 1] * d[i, 1] + d[i, 2] * d[i, 2]).sqrt().clamp_min(1e-9)
+        dT = dn[:, None].expand(3, S).contiguous()
+        samples = {"K2": fused_mlp.fused_distilled_eval(student, x, dT), "plain": student.field_T(x, dT),
+                   "exact": chip_smoke.exact_field(student, x, dT)}
+        hit = tf[i:i + 1] > tn[i:i + 1]
+        comp = {k: _composite(sg.double()[None], rgb.double()[:, None], ts.double(), tf[i:i + 1].double(), hit, cut,
+                              1.0) for k, (sg, rgb) in samples.items()}
+    k1_ray = torch.cat([out["alpha"][i:i + 1], out["rgb"][i]]).double()
+    rows = {f"{k}'s samples composited in f64": torch.cat([c[1], c[0][0]]) for k, c in comp.items()}
+    for k, r in (("plain", plain), ("exact", exact)):
+        rows[f"the {k} render (f32)"] = torch.cat([r["alpha"][i:i + 1], r["rgb"][i]]).double()
+    k2_vs_exact = max(float((torch.log1p(samples["K2"][0]) - torch.log1p(samples["exact"][0])).abs().max()),
+                      float((samples["K2"][1] - samples["exact"][1]).abs().max()))
+    plain_vs_exact = max(float((torch.log1p(samples["plain"][0]) - torch.log1p(samples["exact"][0])).abs().max()),
+                         float((samples["plain"][1] - samples["exact"][1]).abs().max()))
+    k1_vs_k2_comp = float((k1_ray - rows["K2's samples composited in f64"]).abs().max())
+    chip_smoke.log(
+        f"[K1 tail] per-ray rule against the exact sums over {e_k.numel()} rays: K1 max {float(e_k.max()):.3e}, "
+        f"share beyond {chip_smoke.K1_TOL} {share_k:.6f}; plain max {float(e_p.max()):.3e}, share {share_p:.6f}; "
+        f"rule (K1 <= 1.5 x plain + 1e-4): {share_k <= 1.5 * share_p + 1e-4}")
+    chip_smoke.log(
+        f"[K1 tail] ray {i}: K1 {e_k[i]:.3e} and plain {e_p[i]:.3e} from the exact sums; its {S} samples, max over "
+        f"log1p(sigma) and rgb: K2 vs exact {k2_vs_exact:.3e}, plain vs exact {plain_vs_exact:.3e}; (alpha, rgb) "
+        f"K1 {k1_ray.tolist()}, " + ", ".join(f"{k} {v.tolist()}" for k, v in rows.items())
+        + f"; K1 vs K2's samples composited in f64: {k1_vs_k2_comp:.3e} "
+        f"({'K1 composites them' if k1_vs_k2_comp <= 1e-3 else 'K1 COMPOSITES DIFFERENTLY'})")
 
 
 def main() -> int:
@@ -37,9 +100,10 @@ def main() -> int:
 
     fused_mlp.build_kernels()
     t0 = time.perf_counter()
-    chip_smoke.phase_assets(device, gate=False)
+    rays = chip_smoke.phase_assets(device, gate=False)[3]
     chip_smoke.log(f"[full budget] train {steps[0]}, distill {steps[1]}, fine-tune {steps[2]} steps: "
                    f"{time.perf_counter() - t0:.1f} s")
+    trace_k1_tail(device, rays)
     return 0
 
 

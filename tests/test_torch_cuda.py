@@ -1,4 +1,5 @@
-"""K1's and K2's CUDA kernels against their plain PyTorch versions, on the card.
+"""K1's and K2's CUDA kernels against their plain PyTorch versions, on the card
+(and the SfM stages' f32 arithmetic on the card against the CPU).
 
 Every test here needs an NVIDIA GPU and skips without one. The file
 imports no JAX, so it also runs where JAX is not installed:
@@ -356,3 +357,55 @@ def test_k1_and_k2_refuse_gradients(cuda_device):
         fused_mlp.fused_march_render(field, o_g, d_g, tn, tf, 48, 1e-7)
         fused_mlp.fused_distilled_eval(field, x, x)
     assert fused_mlp.launch_count(fused_mlp.K1) == fused_mlp.launch_count(fused_mlp.K2) == 1
+
+
+@pytest.mark.cuda
+def test_sfm_stages_run_in_true_f32_on_the_card(cuda_device):
+    """Detection, description, matching and triangulation on the card agree
+    with the CPU even with TF32 allowed globally (their convolutions and
+    products run in true f32 inside the functions), and the global flags
+    are left as they were."""
+    from pixtrack_tpu_torch.geometry import Camera
+    from pixtrack_tpu_torch.mapping.detector import detect_and_describe
+    from pixtrack_tpu_torch.mapping.matcher import match_descriptors
+    from pixtrack_tpu_torch.mapping.mesh_render import load_obj, look_at_rig_for_mesh, render_mesh
+
+    mesh = load_obj(REPO / "assets" / "mesh_world" / "src" / "house.obj")
+    cam = Camera.pinhole(450.0, 450.0, 223.5, 223.5, 448, 448)
+    views = [render_mesh(mesh, T, cam) for T in look_at_rig_for_mesh(mesh["vertices"], subdiv=1)[:2]]
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = {dev: [detect_and_describe(v, device=dev) for v in views] for dev in ("cpu", cuda_device)}
+        assert (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) == (True, True)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    for (kc, sc, dc), (kg, sg, dg) in zip(got["cpu"], got[cuda_device]):
+        assert len(kg) == len(kc) > 100
+        assert float((kg.cpu() - kc).abs().max()) <= 1e-3
+        assert float((dg.cpu() - dc).abs().max()) <= 1e-5
+    (_, _, d0c), (_, _, d1c) = got["cpu"]
+    (_, _, d0g), (_, _, d1g) = got[cuda_device]
+    np.testing.assert_array_equal(match_descriptors(d0g, d1g)[0], match_descriptors(d0c, d1c)[0])
+
+
+@pytest.mark.cuda
+def test_augment_rolls_poses_on_the_card_in_true_f32(cuda_device):
+    """The rotation augmentation rolls the poses on the device it is given:
+    on the card, with TF32 allowed globally, its poses agree with the CPU's
+    to 1e-6 (both roll in f32)."""
+    from pixtrack_tpu_torch.mapping.augment import augment_scene
+    from pixtrack_tpu_torch.sfm.scene import SceneModel
+
+    shipped = SceneModel.load(REPO / "assets" / "mesh_world" / "aug_sfm")
+    rig = SceneModel(shipped.cameras, {i: r for i, r in shipped.images.items() if "_rot" not in r.name}, {})
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = {dev: augment_scene(rig, angles=(90, 330), device=dev) for dev in ("cpu", cuda_device)}
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    assert len(got["cpu"].images) == 3 * len(rig.images) == 126
+    assert got["cpu"].names == got[cuda_device].names
+    np.testing.assert_allclose(got[cuda_device].qvecs, got["cpu"].qvecs, atol=1e-6)
+    np.testing.assert_allclose(got[cuda_device].tvecs, got["cpu"].tvecs, atol=1e-6)

@@ -69,12 +69,18 @@ def test_unet_f32_shipped_weights(jax_params):
 
 
 def test_unet_bf16_shipped_weights(jax_params):
+    """Against XLA's compiled bf16 UNet (the trackers jit it), whose roundings
+    the port takes: measured max 0.0625 (one bf16 ulp at 8-16), mean at most
+    2.1e-3, and 74-87 % of the feature values bit-equal (1-4 % when every op
+    rounds, scripts_dev/unet_bf16_rounding.py)."""
     img = _image(seed=1)
-    pj = JUNet().apply(jax_params, jnp.asarray(img)[None])
+    pj = jax.jit(JUNet().apply)(jax_params, jnp.asarray(img)[None])
     model = load_unet_weights(WEIGHTS, device="cpu", dtype=torch.bfloat16)
     with torch.no_grad():
         pt = model(torch.as_tensor(img)[None])
-    _compare(pj, pt, atol=0.1, mean_tol=2e-2)
+    _compare(pj, pt, atol=0.07, mean_tol=2.5e-3)
+    for a, b in zip(pj["feature_maps"], pt["feature_maps"]):
+        assert np.mean(np.asarray(a) == b.float().numpy()) >= 0.7
 
 
 def test_unet_random_flax_init_converts():
