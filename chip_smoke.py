@@ -69,7 +69,17 @@ nothing of JAX. Phases:
 24. ``augment`` of phase 22's model: 504 images, database.db, covis.pkl,
     poses equal to the shipped ``aug_sfm``'s;
 25. phase 7's fused closed loop and open loop over the model of phase 24,
-    with the shipped field.
+    with the shipped field;
+26. ``bundle-adjust`` (the CLI) on phase 22's model, and ``bundle_adjust``
+    of a perturbed copy of it, against the JAX package's outcome on its own
+    model (``scripts_dev/refine_mesh_jax.npz``);
+27. featuremetric refinement, the mapper's polish order: keypoint
+    adjustment, BA, featuremetric BA (2 rounds) with the handcrafted
+    extractor, its wall time split into extraction, KA, BA, the pose block
+    and the point block; held to JAX's as phase 26;
+28. photometric track refinement, then BA; held to JAX's as phase 26;
+29. phase 7's fused frame in open loop over phase 27's refined model, with
+    phase 7's open-loop gate.
 
 Every phase prints its wall time. Every check raises on failure, so any failed phase exits non-zero. The
 second-to-last line is the kernel table as JSON; the last line is
@@ -797,11 +807,12 @@ def mesh_chain(step, T0, ok0: bool, thresh, queries, k: int):
     return outs
 
 
-def phase_mesh(device, n_frames=20, aug_sfm=None, gates=None, label="mesh"):
+def phase_mesh(device, n_frames=20, aug_sfm=None, gates=None, label="mesh", open_only=False):
     """The fused closed loop over MESH_CHAINS perturbed cold starts, then the
     same fused frame in open loop, on the shipped model or on ``aug_sfm``,
     held to ``gates`` (phase 7's by default); every fused frame after the
-    cold start launches K1 once."""
+    cold start launches K1 once. ``open_only``: the cold start and the open
+    loop only."""
     import torch
 
     from pixtrack_tpu_torch.nerf import fused_mlp
@@ -809,14 +820,19 @@ def phase_mesh(device, n_frames=20, aug_sfm=None, gates=None, label="mesh"):
     g = gates or MESH_GATES
     assets = mesh_assets(device, n_frames, aug_sfm=aug_sfm)
     tracker, camera, frames, gt, mesh, diameter = mesh_world(device, assets=assets)
-    outs = tracker.run_fused(frames, camera=camera)  # cold start + fused frames: chain 0
-    check(len(outs) == n_frames, f"{label}: missing frames")
+    # cold start + fused frames: chain 0 (the cold start alone in open_only)
+    outs = tracker.run_fused(frames[:1] if open_only else frames, camera=camera)
+    check(len(outs) == (0 if open_only else n_frames), f"{label}: missing frames")
     cold = tracker.pose_history[frames[0][0]]
 
     step = tracker._fused_step
     thresh = torch.tensor(tracker.cost_threshold, dtype=torch.float32, device=device)
     T0 = torch.as_tensor(cold["T_refined"], dtype=torch.float32, device=device)
     queries = [torch.as_tensor(img, device=device).float() / 255.0 for _, img in frames[1:]]
+    if open_only:
+        k1_before = fused_mlp.launch_count(fused_mlp.K1)
+        return tracker, queries, open_loop(step, thresh, gt, queries, mesh, diameter, g, label, tracker, n_frames,
+                                           k1_before, n_frames, device), assets
 
     def chain(k):
         return mesh_chain(step, T0, bool(cold["success"]), thresh, queries, k)
@@ -864,23 +880,38 @@ def phase_mesh(device, n_frames=20, aug_sfm=None, gates=None, label="mesh"):
         check(best["rot_med"] <= g["best_med"], f"{label}: the best chain's rotation median {best['rot_med']:.2f} deg")
         check(ranked[1]["ok"] >= g["second_ok"], f"{label}: the second chain has {ranked[1]['ok']} < {g['second_ok']}")
 
-    # open loop: the same fused frame, each from the previous frame's ground truth
+    # the timed pass, chains 1.. and the open loop
+    opened = open_loop(step, thresh, gt, queries, mesh, diameter, g, label, tracker, n_frames, k1_before,
+                       (MESH_CHAINS + 1) * n_frames, device)
+    return tracker, queries, {"fps": fps, "chains": [r["ok"] for r in results], **opened}, assets
+
+
+def open_loop(step, thresh, gt, queries, mesh, diameter, g, label, tracker, n_frames, k1_before, fused_frames,
+              device):
+    """The fused frame in open loop, each frame from the previous frame's
+    ground truth, held to ``g``'s open-loop gates; K1 must have launched
+    once per fused frame since ``k1_before`` was read (``fused_frames`` of
+    them, this loop's included)."""
+    import torch
+
+    from pixtrack_tpu_torch.nerf import fused_mlp
+
     always = torch.tensor(True, device=device)
     open_outs = [step(gt[k].R.to(device).float(), gt[k].t.to(device).float(), always, thresh, q)
                  for k, q in enumerate(queries)]
     o_auc, o_s_auc, o_rot = pose_metrics([(o.R.cpu().numpy(), o.t.cpu().numpy()) for o in open_outs], gt[1:],
                                          mesh, diameter)
     o_oks = [bool(o.ok) for o in open_outs]
-    fused_frames = (MESH_CHAINS + 1) * n_frames  # the timed pass, chains 1.., the open loop
     k1 = fused_mlp.launch_count(fused_mlp.K1) - k1_before
+    unet = str(tracker.refiner.extractor.model.dtype)[6:]
     log(f"[{label}] open loop (each frame from the previous frame's ground truth), UNet {unet}, {n_frames} frames: "
         f"per-frame cost {[round(float(o.cost), 4) for o in open_outs]}; success {sum(o_oks)}/{len(o_oks)}, "
         f"rot med/max {np.median(o_rot):.2f}/{np.max(o_rot):.2f} deg, ADD AUC@0.1d {o_auc:.3f}, ADD-S AUC {o_s_auc:.3f}"
-        f"; K1 launches over the {fused_frames} fused frames after the first chain: {k1}")
+        f"; K1 launches over the {fused_frames} fused frames counted here: {k1}")
     check(sum(o_oks) >= g["open_ok"], f"{label}, open loop: {sum(o_oks)} successes < {g['open_ok']}")
     check(np.median(o_rot) <= g["open_med"], f"{label}, open loop: rotation median {np.median(o_rot):.2f} deg")
     check(k1 == fused_frames, f"{label}: K1 launched {k1} times over {fused_frames} fused frames")
-    return tracker, queries, {"fps": fps, "chains": [r["ok"] for r in results], "open": sum(o_oks)}, assets
+    return {"open": sum(o_oks)}
 
 
 def pose_metrics(poses, gt, mesh, diameter):
@@ -1867,6 +1898,311 @@ def phase_augment(work, ref):
     return paths["aug_sfm"]
 
 
+# ------------------------------------------------------------ phases 26-29 --
+# The SfM refinement stages (pixtrack_tpu_torch/mapping/{bundle,featuremetric,
+# track_refine}.py) over phase 22's model on the card, then the mesh world
+# tracked over the refined model. Their reference is the JAX package's
+# outcome of the same stages over ITS model of the same rig, on the CPU
+# (scripts_dev/refine_mesh_jax.py writes REFINE_JAX). "The truth" is the
+# rig's poses: the posed-view model's own poses as built.
+REFINE_JAX = REPO / "scripts_dev" / "refine_mesh_jax.npz"
+# Phase 26's second run: every pose but camera 0's turned by PERTURB_DEG about
+# a random axis and its centre moved by PERTURB_FRAC of the object's diameter,
+# every point moved by PERTURB_FRAC of it, from numpy's default_rng(PERTURB_SEED)
+# in the order perturb_scene draws; then PERTURB_ITERS BA iterations.
+PERTURB_SEED, PERTURB_DEG, PERTURB_FRAC, PERTURB_ITERS = 0, 1.0, 0.01, 30
+# Gates of phases 26-28, each against JAX's outcome of the same stage: each
+# view's rotation error against the truth, median within JAX's + ROT_MED_SLACK
+# and max within JAX's + ROT_MAX_SLACK (deg); the median reprojection error
+# within REPROJ_REL of JAX's; REFINE_NEAR_SHARE of the refined points within
+# REFINE_NEAR_FRAC of the diameter of a JAX point, both ways. BA leaves the
+# scale about camera 0's centre free and f32 rounding drives it (the port and
+# JAX on the CPU, one model: scales 1.0380 and 1.0339 from 1.0354, the shape
+# equal to 7e-5), so points are compared with that gauge removed
+# (gauge_free_points). The card's phase-22 model is not JAX's to the last
+# point (phase 22's gate), so the stages start from models that differ.
+# Readings (the card: NVIDIA H100 80GB HBM3, 700 W, a probe of PR 8 over its
+# own phase-22 model; the port on the CPU over JAX's model), against JAX:
+# bundle-adjust median/max 0.6692/1.8785 deg (JAX 0.6687/1.8810), the
+# perturbed run 0.6578/1.9221 (0.6576/1.9209), photometric 0.5370/1.3638
+# (0.5369/1.3634), reprojection medians within 0.1 %, points 99.9-100 %
+# within 1e-3 of the diameter.
+ROT_MED_SLACK, ROT_MAX_SLACK, REPROJ_REL = 0.05, 0.2, 0.05
+REFINE_NEAR_FRAC, REFINE_NEAR_SHARE = 1e-3, 0.90
+# Phase 27 (KA -> BA -> featuremetric BA) is held by its own two constants.
+# KA's LM has no acceptance test and clips its steps at 1 px, so a few of its
+# 3353 observations land by their last bits: the port against JAX on one
+# model moves 11 keypoints by more than 0.01 px (7 by more than 0.1, up to
+# 2.41 px), and the port against itself with the keypoints moved by 3e-5 px
+# moves 15 (6, up to 1.66 px); the rest agree to 4e-4 px. The pose block and
+# PA, fed one scene, agree to 5e-4 deg and 6e-8. Those few keypoints move
+# single views through BA and the pose block: per-view rotation errors 0.57
+# deg apart at most (median 0.023) between the packages on one model, and
+# the points (shares within 1e-3 / 2e-3 / 5e-3 / 1e-2 of the diameter):
+# 0.708 / 0.852 / 0.945 / 0.987 there, 0.814 / 0.912 / 0.974 / 0.990 on the
+# card from its own model. Measured: rotation median 0.7718 deg on the card,
+# 0.7408 in the port on the CPU, 0.7474 in JAX; max 3.0971, 2.9616, 2.9456.
+FM_ROT_MAX_SLACK, FM_NEAR_FRAC = 0.6, 5e-3
+
+
+def quat_rotmats(qvecs) -> np.ndarray:
+    """COLMAP (w, x, y, z) quaternions (P, 4) -> rotation matrices, f64."""
+    from scipy.spatial.transform import Rotation
+
+    return Rotation.from_quat(np.roll(np.asarray(qvecs, np.float64), -1, axis=-1)).as_matrix()
+
+
+def rotation_errors_deg(scene, truth) -> np.ndarray:
+    """Each view's rotation error (deg) against the same-named view of
+    ``truth``, in the order of ``truth.names``; the chord form, without
+    arccos's floor near 0."""
+    k = [scene._imgidx[scene.name2id[n]] for n in truth.names]
+    d = np.linalg.norm(quat_rotmats(scene.qvecs[k]) - quat_rotmats(truth.qvecs), axis=(1, 2))
+    return np.rad2deg(2.0 * np.arcsin(np.minimum(d / (2.0 * np.sqrt(2.0)), 1.0)))
+
+
+def reprojection_errors(scene) -> np.ndarray:
+    """The pixel error of every observation of every point (PINHOLE)."""
+    cam = next(iter(scene.cameras.values()))
+    f, c = np.asarray(cam.params[:2], np.float64), np.asarray(cam.params[2:4], np.float64)
+    R = quat_rotmats(scene.qvecs)
+    rows, X, uv = [], [], []
+    for pid in scene.point_ids:
+        p = scene.points3D[int(pid)]
+        for iid, kidx in zip(p.image_ids, p.point2D_idxs):
+            rows.append(scene._imgidx[int(iid)])
+            X.append(p.xyz)
+            uv.append(scene.images[int(iid)].xys[int(kidx)])
+    rows = np.asarray(rows)
+    pc = np.einsum("mij,mj->mi", R[rows], np.asarray(X, np.float64)) + scene.tvecs[rows]
+    return np.linalg.norm(pc[:, :2] / pc[:, 2:] * f + c - np.asarray(uv, np.float64), axis=1)
+
+
+def gauge_free_points(scene, truth) -> np.ndarray:
+    """The points scaled about camera 0's centre (the first image id) so that
+    the camera centres' mean distance from it is the truth's."""
+    def centres(s):
+        k = [s._imgidx[s.name2id[n]] for n in truth.names]
+        return -np.einsum("pji,pj->pi", quat_rotmats(s.qvecs[k]), s.tvecs[k])
+
+    c, c_ref = centres(scene), centres(truth)
+    s = np.linalg.norm(c_ref - c_ref[0], axis=1).mean() / np.linalg.norm(c - c[0], axis=1).mean()
+    return c[0] + (scene.xyz - c[0]) * s
+
+
+def perturb_scene(scene, diameter: float, seed: int = PERTURB_SEED):
+    """A copy of ``scene`` (either package's SceneModel) with every pose but
+    the first image id's turned by PERTURB_DEG about a random axis and its
+    centre moved by PERTURB_FRAC * diameter in a random direction, and every
+    point moved by PERTURB_FRAC * diameter: numpy's default_rng(seed), drawn
+    per image in id order (axis, then direction), then for the points."""
+    import dataclasses
+
+    from scipy.spatial.transform import Rotation
+
+    rng = np.random.default_rng(seed)
+
+    def unit(n):
+        v = rng.normal(size=(n, 3))
+        return v / np.linalg.norm(v, axis=1, keepdims=True)
+
+    images = dict(scene.images)
+    for iid in sorted(scene.images)[1:]:
+        im = scene.images[iid]
+        turn = Rotation.from_rotvec(unit(1)[0] * np.deg2rad(PERTURB_DEG))
+        R = Rotation.from_quat(np.roll(im.qvec, -1))
+        centre = -R.as_matrix().T @ im.tvec + unit(1)[0] * PERTURB_FRAC * diameter
+        R2 = turn * R
+        q = np.roll(R2.as_quat(), 1)
+        images[iid] = dataclasses.replace(im, qvec=q if q[0] >= 0 else -q, tvec=-R2.as_matrix() @ centre)
+    moves = unit(len(scene.point_ids)) * PERTURB_FRAC * diameter
+    points = {int(pid): dataclasses.replace(scene.points3D[int(pid)], xyz=scene.points3D[int(pid)].xyz + moves[k])
+              for k, pid in enumerate(scene.point_ids)}
+    return type(scene)(scene.cameras, images, points)
+
+
+def refine_outcome(scene, truth) -> dict:
+    """What phases 26-28 hold to JAX's: per-view rotation errors against the
+    truth, the reprojection median, the points without BA's scale gauge."""
+    return {"rot": rotation_errors_deg(scene, truth), "reproj_med": float(np.median(reprojection_errors(scene))),
+            "xyz": gauge_free_points(scene, truth)}
+
+
+def hold_to_jax(label: str, got: dict, ref: dict, diameter: float, max_slack: float = ROT_MAX_SLACK,
+                near_frac: float = REFINE_NEAR_FRAC):
+    """Print the stage's outcome beside JAX's and check it by the gates above."""
+    tol = near_frac * diameter
+    near = (nearest_shares(got["xyz"], ref["xyz"], (tol,))[tol], nearest_shares(ref["xyz"], got["xyz"], (tol,))[tol])
+    log(f"[{label}] rotation error vs the truth, median/max {np.median(got['rot']):.4f}/{got['rot'].max():.4f} deg "
+        f"(JAX on the CPU {np.median(ref['rot']):.4f}/{ref['rot'].max():.4f}); reprojection median "
+        f"{got['reproj_med']:.4f} px (JAX {ref['reproj_med']:.4f}); points within {near_frac:g} of the diameter "
+        f"of a JAX point, without the scale gauge: {near[0]:.4f}, JAX's of the card's {near[1]:.4f}")
+    check(np.median(got["rot"]) <= np.median(ref["rot"]) + ROT_MED_SLACK,
+          f"{label}: rotation median {np.median(got['rot']):.4f} deg, JAX {np.median(ref['rot']):.4f}")
+    check(got["rot"].max() <= ref["rot"].max() + max_slack,
+          f"{label}: rotation max {got['rot'].max():.4f} deg, JAX {ref['rot'].max():.4f}")
+    check(abs(got["reproj_med"] - ref["reproj_med"]) <= REPROJ_REL * ref["reproj_med"],
+          f"{label}: reprojection median {got['reproj_med']:.4f} px, JAX {ref['reproj_med']:.4f}")
+    check(min(near) >= REFINE_NEAR_SHARE, f"{label}: points near JAX's {near[0]:.4f} / {near[1]:.4f}")
+
+
+def jax_refine_reference() -> dict:
+    """{stage: {rot, reproj_med, xyz}} and the JAX times from REFINE_JAX."""
+    z = np.load(REFINE_JAX)
+    stages = ("ba_cli", "ba_perturbed", "fm", "photometric")
+    out = {k: {"rot": z[f"{k}_rot"], "reproj_med": float(z[f"{k}_reproj_med"]), "xyz": z[f"{k}_xyz"]} for k in stages}
+    out["built"] = {"reproj_med": float(z["built_reproj_med"])}
+    out["seconds"] = {k: float(z[f"{k}_seconds"]) for k in stages}
+    out["photometric_moved"] = float(z["photometric_moved"])
+    return out
+
+
+class NestedTimer:
+    """Exclusive host-clock times (synchronised) of wrapped functions: a
+    wrapped call's time less the time of wrapped calls inside it."""
+
+    def __init__(self):
+        self.times, self.stack = {}, []
+
+    def wrap(self, fn, part):
+        import torch
+
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            self.stack.append(0.0)
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            total = time.perf_counter() - t0
+            inner = self.stack.pop()
+            self.times[part] = self.times.get(part, 0.0) + total - inner
+            if self.stack:
+                self.stack[-1] += total
+            return out
+        return run
+
+    @contextlib.contextmanager
+    def patched(self, parts):
+        """``parts``: (object, attribute, part) triples, restored on exit; a
+        part that no call reached fails the phase."""
+        saved = [(obj, name, getattr(obj, name)) for obj, name, _ in parts]
+        for (obj, name, fn), (_, _, part) in zip(saved, parts):
+            setattr(obj, name, self.wrap(fn, part))
+        try:
+            yield self
+        finally:
+            for obj, name, fn in saved:
+                setattr(obj, name, fn)
+        missed = [part for _, _, part in parts if part not in self.times]
+        check(not missed, f"stage split: no call reached {missed}")
+
+
+class TimedExtractor:
+    """The mapper's extractor behind a timer: the featuremetric stages call
+    it and read its ``device``."""
+
+    def __init__(self, extractor, timer: NestedTimer):
+        self.extractor, self.device = extractor, extractor.device
+        self.call = timer.wrap(extractor.__call__, "extraction")
+
+    def __call__(self, image, image_scale: int = 1):
+        return self.call(image, image_scale)
+
+
+def rig_images(work, scene) -> dict:
+    """{image_id: uint8 image} of phase 22's renders, read back from the mapping dir."""
+    from pixtrack_tpu_torch.mapping.mesh_render import read_png
+    from pixtrack_tpu_torch.pipelines import assets
+
+    mapping = assets.layout(work)["mapping"]
+    return {int(i): read_png(mapping / scene.images[int(i)].name) for i in scene.image_ids}
+
+
+def phase_bundle_adjust(work, scene, ref, diameter):
+    """``bundle-adjust`` through the CLI on phase 22's model as built, then
+    ``bundle_adjust_scene`` on a perturbed copy; both on the card."""
+    import torch
+
+    from pixtrack_tpu_torch.mapping.bundle import bundle_adjust_scene
+    from pixtrack_tpu_torch.pipelines import assets, cli
+    from pixtrack_tpu_torch.sfm.scene import SceneModel
+
+    out = work / "ba_sfm"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cli.main(["bundle-adjust", "--model", str(assets.layout(work)["ref_sfm"]), "--out", str(out)])
+    wall = time.perf_counter() - t0
+    ba = SceneModel.load(out)
+    before = float(np.median(reprojection_errors(scene)))
+    got = refine_outcome(ba, scene)
+    log(f"[bundle-adjust] CLI, {len(ba.image_ids)} views, {len(ba.point_ids)} points, 20 iterations: {wall:.2f} s "
+        f"(JAX on the CPU {ref['seconds']['ba_cli']:.2f} s); reprojection median {before:.4f} px as built (JAX "
+        f"{ref['built']['reproj_med']:.4f}) -> {got['reproj_med']:.4f}; per-view rotation error vs the truth, deg: "
+        f"{[round(float(r), 4) for r in got['rot']]}")
+    hold_to_jax("bundle-adjust", got, ref["ba_cli"], diameter)
+
+    pert = perturb_scene(scene, diameter)
+    start = rotation_errors_deg(pert, scene)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec = bundle_adjust_scene(pert, iters=PERTURB_ITERS)
+    wall = time.perf_counter() - t0
+    got = refine_outcome(rec, scene)
+    log(f"[bundle-adjust] perturbed ({PERTURB_DEG} deg, {PERTURB_FRAC} of the diameter, seed {PERTURB_SEED}; rotation "
+        f"error median {np.median(start):.4f} deg at the start), {PERTURB_ITERS} iterations: {wall:.2f} s (JAX on the "
+        f"CPU {ref['seconds']['ba_perturbed']:.2f} s)")
+    hold_to_jax("bundle-adjust, perturbed", got, ref["ba_perturbed"], diameter)
+
+
+def phase_featuremetric(work, scene, images, ref, diameter):
+    """KA over the model's tracks, BA, then featuremetric BA (2 rounds), the
+    mapper's polish order and extractor; the wall time split by part."""
+    from pixtrack_tpu_torch.features import FeatureExtractor, HandcraftedExtractor
+    from pixtrack_tpu_torch.mapping import bundle, featuremetric
+    from pixtrack_tpu_torch.sfm.scene import SceneModel
+
+    timer = NestedTimer()
+    ex = TimedExtractor(FeatureExtractor(HandcraftedExtractor(), resize=1024), timer)
+    t0 = time.perf_counter()
+    with timer.patched([(featuremetric, "refine_scene_keypoints", "KA"), (bundle, "bundle_adjust_scene", "BA"),
+                        (featuremetric, "featuremetric_ba", "pose block"),
+                        (featuremetric, "point_adjustment", "point block")]):
+        s = featuremetric.refine_scene_keypoints(scene, images, ex)
+        s = bundle.bundle_adjust_scene(s)
+        s = featuremetric.featuremetric_ba(s, images, ex, rounds=2)
+    wall = time.perf_counter() - t0
+    moved = float(np.mean(np.concatenate([np.abs(s.images[i].xys - scene.images[i].xys).max(axis=1) > 1e-6
+                                          for i in scene.images])))
+    log(f"[featuremetric] KA -> BA -> featuremetric BA (2 rounds), handcrafted extractor: {wall:.2f} s (JAX on the "
+        f"CPU {ref['seconds']['fm']:.2f} s): " + ", ".join(f"{k} {v:.2f} s" for k, v in timer.times.items())
+        + f"; keypoints moved by KA {moved:.4f}")
+    hold_to_jax("featuremetric", refine_outcome(s, scene), ref["fm"], diameter, FM_ROT_MAX_SLACK, FM_NEAR_FRAC)
+    out = work / "refined_sfm"
+    out.mkdir(parents=True, exist_ok=True)
+    s.save(out)
+    return out, timer.times
+
+
+def phase_photometric(scene, images, ref, diameter):
+    """Photometric track refinement, then BA; the share of observations it
+    moved beside JAX's."""
+    import torch
+
+    from pixtrack_tpu_torch.mapping.bundle import bundle_adjust_scene
+    from pixtrack_tpu_torch.mapping.track_refine import refine_tracks_photometric
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s = refine_tracks_photometric(scene, images)
+    t_refine = time.perf_counter() - t0
+    moved = s._track_refine_applied / int(scene.track_lengths.sum())
+    s = bundle_adjust_scene(s)
+    wall = time.perf_counter() - t0
+    log(f"[photometric] refine_tracks_photometric {t_refine:.2f} s, then BA: {wall:.2f} s in all (JAX on the CPU "
+        f"{ref['seconds']['photometric']:.2f} s); observations moved {moved:.4f} (JAX {ref['photometric_moved']:.4f})")
+    hold_to_jax("photometric", refine_outcome(s, scene), ref["photometric"], diameter)
+
+
 def phase_rebuild(device):
     """Phases 21-25, each timed, in a work directory of their own; returns
     phase 23's K1 / K2 launches, and phase 25's results and K1 launches."""
@@ -1885,10 +2221,29 @@ def phase_rebuild(device):
         _, _, mesh, _ = timed_phase("phase 25, the mesh world over the card-built model", phase_mesh, device,
                                     aug_sfm=aug_sfm, gates=REBUILT_GATES, label="rebuilt")
         launches = fused_mlp.launch_count(fused_mlp.K1)
-    log(f"[rebuilt] closed loop over the card-built model: chains {mesh['chains']} (JAX on its own model "
-        f"{[ok for ok, _ in JAX_REBUILT_CHAINS]}; phase 7 on the shipped model above), open loop {mesh['open']}/20 "
-        f"(JAX 20/20)")
-    return nerf_sfm_launches, mesh, launches
+        log(f"[rebuilt] closed loop over the card-built model: chains {mesh['chains']} (JAX on its own model "
+            f"{[ok for ok, _ in JAX_REBUILT_CHAINS]}; phase 7 on the shipped model above), open loop "
+            f"{mesh['open']}/20 (JAX 20/20)")
+        refined = phase_refine(device, work, scene)
+    return nerf_sfm_launches, mesh, launches, refined
+
+
+def phase_refine(device, work, scene):
+    """Phases 26-29 over phase 22's model; returns phase 27's time split and
+    phase 29's open loop and K1 launches."""
+    from pixtrack_tpu_torch.nerf import fused_mlp
+
+    ref = jax_refine_reference()
+    diameter = float(json.loads((REPO / "assets" / "mesh_world" / "meta.json").read_text())["diameter"])
+    images = rig_images(work, scene)
+    timed_phase("phase 26, bundle adjustment", phase_bundle_adjust, work, scene, ref, diameter)
+    refined, split = timed_phase("phase 27, featuremetric refinement", phase_featuremetric, work, scene, images, ref,
+                                 diameter)
+    timed_phase("phase 28, photometric track refinement", phase_photometric, scene, images, ref, diameter)
+    fused_mlp.reset_launch_counts()
+    _, _, opened, _ = timed_phase("phase 29, the mesh world's open loop over the refined model", phase_mesh, device,
+                                  aug_sfm=refined, label="refined", open_only=True)
+    return {"split": split, "open": opened["open"], "k1": fused_mlp.launch_count(fused_mlp.K1)}
 
 
 # -------------------------------------------------------------------- main --
@@ -2008,8 +2363,8 @@ def main() -> int:
     # phases 17-20: the asset path, the student's renders counted
     asset_launches, student_k1_err, student_staged_err, _ = phase_assets(device)
 
-    # phases 21-25: the SfM model rebuilt through the asset subcommands, tracked
-    nerf_sfm_launches, rebuilt, rebuilt_k1 = phase_rebuild(device)
+    # phases 21-29: the SfM model rebuilt through the asset subcommands, refined, tracked
+    nerf_sfm_launches, rebuilt, rebuilt_k1, refined = phase_rebuild(device)
     log("[launches] phase 12 (jittered renders, spp=4): K2 "
         + ", ".join(f"{n} at {w}x{h}" for (w, h), n in jitter_launches.items()) + "; phases 13-15 (K1, K2): "
         + ", ".join(f"{name} {n[fused_mlp.K1]}, {n[fused_mlp.K2]}" for name, n in variant_launches.items()))
@@ -2026,7 +2381,8 @@ def main() -> int:
                                  **{name: n[fused_mlp.K1] for name, n in variant_launches.items()},
                                  "card-built student": asset_launches[fused_mlp.K1],
                                  "nerf-sfm (phase 23)": nerf_sfm_launches[fused_mlp.K1],
-                                 "fused frames over the card-built model (phase 25)": rebuilt_k1},
+                                 "fused frames over the card-built model (phase 25)": rebuilt_k1,
+                                 "open loop over the refined model (phase 29)": refined["k1"]},
             "max_abs_err": max(max(r["err"] for r in k1), student_k1_err),
             "ms": main_shape["ms"],
             "plain_ms": main_shape["plain_ms"],
@@ -2053,7 +2409,9 @@ def main() -> int:
         },
     ]}))
     log(f"[summary] {smi}: blob FPS {blob['fps']:.2f}, mesh closed-loop FPS {mesh['fps']:.2f}, over the "
-        f"card-built model {rebuilt['fps']:.2f}")
+        f"card-built model {rebuilt['fps']:.2f}; refinement split (s) "
+        + ", ".join(f"{k} {v:.2f}" for k, v in refined["split"].items())
+        + f"; open loop over the refined model {refined['open']}/20")
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                             "count": torch.cuda.device_count()}}))
     return 0

@@ -7,7 +7,7 @@ from pixtrack_tpu_torch.align.interpolate import (
     pack_fmap,
 )
 from pixtrack_tpu_torch.align.lm import AlignConfig, LevelData, align_level, align_level_traced, align_pyramid
-from pixtrack_tpu_torch.align.observations import build_level_data, observe_points
+from pixtrack_tpu_torch.align.observations import aggregate_observations, build_level_data, observe_points
 
 __all__ = [
     "interpolate_features",
@@ -19,6 +19,7 @@ __all__ = [
     "align_level",
     "align_level_traced",
     "align_pyramid",
+    "aggregate_observations",
     "build_level_data",
     "observe_points",
 ]

@@ -1,7 +1,7 @@
 """Per-3D-point reference descriptors from a reference view.
 
-Port of ``observe_points`` and ``build_level_data`` from
-``pixtrack_tpu/align/observations.py``.
+Port of ``observe_points``, ``aggregate_observations`` and
+``build_level_data`` from ``pixtrack_tpu/align/observations.py``.
 """
 
 from __future__ import annotations
@@ -10,6 +10,7 @@ from typing import Optional
 
 import torch
 
+from pixtrack_tpu_torch._device import true_f32
 from pixtrack_tpu_torch.align.interpolate import interpolate_features, interpolate_scalar
 from pixtrack_tpu_torch.features.pyramid import FeaturePyramid
 from pixtrack_tpu_torch.geometry import Camera, Pose
@@ -39,6 +40,19 @@ def observe_points(
         weights.append(torch.where(valid, w, 0.0))
         valids.append(valid)
     return tuple(feats), tuple(weights), tuple(valids)
+
+
+def aggregate_observations(feats_views: torch.Tensor, weights_views: torch.Tensor, valids_views: torch.Tensor):
+    """Weighted mean of multi-view observations per point. Args are stacked
+    over a leading views axis: (V, N, C), (V, N), (V, N). Returns
+    (f (N, C), w (N,), valid (N,))."""
+    wv = torch.where(valids_views, weights_views, 0.0)
+    den = wv.sum(0).clamp_min(1e-8)
+    with true_f32():
+        f = torch.einsum("vn,vnc->nc", wv, feats_views) / den[:, None]
+    valid = valids_views.any(0)
+    w = den / valids_views.sum(0).clamp_min(1)
+    return f, w, valid
 
 
 def build_level_data(pyramid_query: FeaturePyramid, f_ref, w_ref, valid_ref, p3d, mask):

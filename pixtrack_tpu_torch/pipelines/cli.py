@@ -1,9 +1,10 @@
-"""The port's command line: the asset subcommands of ``pixtrack_tpu/pipelines/cli.py``.
+"""The port's command line: the asset subcommands and ``bundle-adjust`` of ``pixtrack_tpu/pipelines/cli.py``.
 
     python -m pixtrack_tpu_torch.pipelines.cli sfm-from-obj --object_path DIR --obj MESH.obj
     python -m pixtrack_tpu_torch.pipelines.cli train-nerf --object_path DIR
     python -m pixtrack_tpu_torch.pipelines.cli nerf-sfm --object_path DIR
     python -m pixtrack_tpu_torch.pipelines.cli augment --object_path DIR
+    python -m pixtrack_tpu_torch.pipelines.cli bundle-adjust --model DIR [--out DIR] [--iters 20]
 
 The same flags and defaults as the JAX package's subcommands, plus
 ``--device`` (the CUDA card by default; ``cpu`` runs on the CPU) and
@@ -52,6 +53,24 @@ def _cmd_augment(args):
     print(augment_assets(args.object_path, device=args.device))
 
 
+def _cmd_bundle_adjust(args):
+    """Refine an SfM model (the COLMAP bundle_adjuster role); in place
+    unless ``--out`` is given."""
+    from pathlib import Path
+
+    from pixtrack_tpu_torch._device import resolve
+    from pixtrack_tpu_torch.mapping.bundle import bundle_adjust_scene
+    from pixtrack_tpu_torch.sfm.scene import SceneModel
+
+    device = resolve(args.device)
+    scene = SceneModel.load(args.model)
+    refined = bundle_adjust_scene(scene, iters=args.iters, device=device)
+    out = Path(args.out or args.model)
+    out.mkdir(parents=True, exist_ok=True)
+    refined.save(out)
+    print(f"bundle-adjusted {len(scene.images)} images -> {out}")
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="pixtrack-tpu-torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -87,6 +106,12 @@ def main(argv=None):
     s = sub.add_parser("augment", help="rotation-augment the SfM model")
     s.add_argument("--object_path", required=True)
     s.set_defaults(fn=_cmd_augment)
+
+    s = sub.add_parser("bundle-adjust", help="refine an SfM model (BA)")
+    s.add_argument("--model", required=True)
+    s.add_argument("--out")
+    s.add_argument("--iters", type=int, default=20)
+    s.set_defaults(fn=_cmd_bundle_adjust)
 
     args = p.parse_args(argv)
     args.fn(args)
