@@ -1,5 +1,6 @@
-"""The port's command line: the asset subcommands and ``bundle-adjust`` of ``pixtrack_tpu/pipelines/cli.py``.
+"""The port's command line: ``reconstruct``, the asset subcommands and ``bundle-adjust`` of ``pixtrack_tpu/pipelines/cli.py``.
 
+    python -m pixtrack_tpu_torch.pipelines.cli reconstruct --object_path DIR [--images DIR]
     python -m pixtrack_tpu_torch.pipelines.cli sfm-from-obj --object_path DIR --obj MESH.obj
     python -m pixtrack_tpu_torch.pipelines.cli train-nerf --object_path DIR
     python -m pixtrack_tpu_torch.pipelines.cli nerf-sfm --object_path DIR
@@ -8,14 +9,78 @@
 
 The same flags and defaults as the JAX package's subcommands, plus
 ``--device`` (the CUDA card by default; ``cpu`` runs on the CPU) and
-``nerf-sfm --no_h5`` (skip features.h5 / matches.h5, which need h5py). The
-other subcommands are not ported yet.
+``nerf-sfm --no_h5`` (skip features.h5 / matches.h5, which need h5py).
+``reconstruct`` runs the Harris detector and mutual-NN + ratio matching:
+the learned detectors and matcher are not ported yet, so ``--detector
+superpoint | dense``, ``--matcher learned``, and ``auto`` when their
+checkpoint is present, stop with a message. The other subcommands are not
+ported yet.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+
+
+def _learned_not_ported(what: str):
+    raise SystemExit(f"{what}: the learned SfM components are not ported to pixtrack_tpu_torch yet; use "
+                     "--detector harris --matcher nn (or the JAX package's CLI)")
+
+
+def _cmd_reconstruct(args):
+    """Unposed SfM from raw images (the run_reconstruction.py role): the
+    camera inferred from the image size (SIMPLE_RADIAL, f = 1.2 max(w, h)),
+    ``incremental_sfm`` with the mapper configuration of the JAX package's
+    CLI, the model written to ``ref_sfm``."""
+    import shutil
+    from pathlib import Path
+
+    import numpy as np
+
+    from pixtrack_tpu_torch._device import resolve
+    from pixtrack_tpu_torch.mapping import (default_descriptor_weights_path, default_matcher_weights_path,
+                                            default_superpoint_weights_path)
+    from pixtrack_tpu_torch.mapping.incremental import incremental_sfm
+    from pixtrack_tpu_torch.pipelines.assets import layout
+    from pixtrack_tpu_torch.sfm import colmap_io
+    from pixtrack_tpu_torch.tracking.refiner import infer_camera_from_image
+    from pixtrack_tpu_torch.utils.io import _list_images, _read_rgb
+
+    device = resolve(args.device)
+    # `auto` resolves as the JAX package's: a learned component when its
+    # checkpoint ships (none does), else Harris + mutual-NN / ratio
+    if args.detector == "dense":
+        _learned_not_ported(f"--detector dense ({default_descriptor_weights_path()})")
+    if args.detector == "superpoint" or (args.detector == "auto" and default_superpoint_weights_path().exists()):
+        _learned_not_ported(f"--detector {args.detector} ({default_superpoint_weights_path()})")
+    if args.matcher == "learned" or (args.matcher == "auto" and default_matcher_weights_path().exists()):
+        _learned_not_ported(f"--matcher {args.matcher} ({default_matcher_weights_path()})")
+
+    paths = layout(args.object_path)
+    mapping = paths["mapping"]
+    mapping.mkdir(parents=True, exist_ok=True)
+    if args.images and str(args.images) != str(mapping):
+        for p in _list_images(args.images):
+            shutil.copy(p, mapping)
+    files = _list_images(mapping)
+    images = {i + 1: _read_rgb(f) for i, f in enumerate(files)}
+    names = {i + 1: Path(f).name for i, f in enumerate(files)}
+    h, w = next(iter(images.values())).shape[:2]
+    cam = infer_camera_from_image((h, w))
+    cam_rec = colmap_io.CameraRecord(1, "SIMPLE_RADIAL", w, h, np.array([float(cam.f[0]), w / 2.0, h / 2.0, 0.0]))
+    # the mapper configuration of the JAX package's tests and CLI: relaxed
+    # score / ratio, NMS scaled to the image size, featuremetric KA and two
+    # featuremetric BA rounds unless --no-featuremetric
+    nms = 1 if max(h, w) <= 320 else (2 if max(h, w) <= 768 else 4)
+    scene = incremental_sfm(
+        images, cam_rec, names=names, verbose=args.verbose, max_keypoints=args.max_keypoints, nms_radius=nms,
+        match_kw=dict(min_score=0.5, ratio=0.98), featuremetric_ka=not args.no_featuremetric,
+        featuremetric_ba_rounds=0 if args.no_featuremetric else 2, device=device,
+    )
+    paths["ref_sfm"].mkdir(parents=True, exist_ok=True)
+    scene.save(paths["ref_sfm"])
+    print(f"reconstructed {len(scene.images)}/{len(images)} images, {len(scene.points3D)} points -> {paths['ref_sfm']}")
 
 
 def _cmd_sfm_from_obj(args):
@@ -76,6 +141,20 @@ def main(argv=None):
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--device", default=None, help="torch device (default: the CUDA card)")
     sub = p.add_subparsers(dest="cmd", required=True)
+
+    s = sub.add_parser("reconstruct", help="unposed SfM from raw images (run_reconstruction)")
+    s.add_argument("--object_path", required=True)
+    s.add_argument("--images", help="source image folder (copied to mapping/)")
+    s.add_argument("--verbose", action="store_true")
+    s.add_argument("--no-featuremetric", action="store_true", help="skip featuremetric keypoint adjustment (pixsfm KA)")
+    s.add_argument("--max_keypoints", type=int, default=1024, help="detector budget per image (hloc superpoint_max role)")
+    s.add_argument("--matcher", choices=("auto", "nn", "learned"), default="auto",
+                   help="pair matcher: mutual-NN + ratio (nn; what auto resolves to with no checkpoint); the "
+                        "learned matcher is not ported yet")
+    s.add_argument("--detector", choices=("auto", "harris", "superpoint", "dense"), default="auto",
+                   help="keypoint detector: multi-scale Harris (harris; what auto resolves to with no checkpoint); "
+                        "SuperPoint and the dense descriptor are not ported yet")
+    s.set_defaults(fn=_cmd_reconstruct)
 
     s = sub.add_parser("sfm-from-obj", help="textured mesh -> posed renders -> SfM")
     s.add_argument("--object_path", required=True)

@@ -39,6 +39,7 @@ from pixtrack_tpu_torch.nerf.distill import init_distilled, load_distilled
 from pixtrack_tpu_torch.nerf.render import RenderConfig, _to_grid, ray_aabb_intersect, render_rays
 
 TOL = 5e-3
+K2_FINETUNE_SAMPLES = 262147
 REPO = Path(__file__).resolve().parents[1]
 
 
@@ -306,15 +307,30 @@ def test_make_tracker_r6_launches_k1(cuda_device):
 def test_k1_and_k2_follow_an_in_place_finetune_step(cuda_device):
     """K1 and K2 pack the field's weights once and reuse them; after a
     fine-tune step that updates the field's tensors in place (the staged
-    render with fused=False, Adam), both render the new weights: each
-    agrees with its plain version on them, and differs from its output
-    before the step."""
+    render with fused=False, Adam), both render the new weights: K1 agrees
+    with its plain version on them, K2 is as close to the exact (f64) sums
+    of the same bf16 products as its plain version is (chip_smoke.py's
+    EXACT_RATIO rule, which phase 20 applies to fine-tuned students), and
+    both differ from their outputs before the step.
+
+    The fine-tuned field flips a bf16 rounding of a hidden activation now
+    and then, in K2 as in its plain version: over 20 draws of 4099 samples
+    (scripts_dev/k2_finetune_exact.py; H100 80GB HBM3, 700 W) K2 lay up to
+    1.47e-2 from the plain version in log1p(sigma), the plain version up to
+    1.17e-2 from the exact sums, and each put 21 of the 81,980 samples
+    further than 5e-3 from them; over 20 draws of 262,147, K2 1648 and the
+    plain version 1281 (1.29x, as chip_smoke phase 4 measures on the mesh
+    field). At 4099 samples one such sample (2.4e-4) outweighs the rule's
+    slack (8 of 20 draws broke it; 1 of 20 at 65,539; none at 262,147), so
+    the draw holds 262,147 samples, from a seeded generator."""
+    from chip_smoke import EXACT_RATIO, EXACT_SLACK, exact_field
     from pixtrack_tpu_torch.nerf.optim import Adam
 
     field = _field(10, cuda_device)
     o_g, d_g, tn, tf = _rays(2048, cuda_device)
-    x = torch.rand(3, 4099, device=cuda_device)
-    dn = torch.nn.functional.normalize(torch.randn(3, 4099, device=cuda_device), dim=0)
+    g = torch.Generator().manual_seed(0)
+    x = torch.rand(3, K2_FINETUNE_SAMPLES, generator=g).to(cuda_device)
+    dn = torch.nn.functional.normalize(torch.randn(3, K2_FINETUNE_SAMPLES, generator=g), dim=0).to(cuda_device)
     with torch.no_grad():
         before = fused_mlp.fused_march_render(field, o_g, d_g, tn, tf, 96, 1e-7)
         before_k2 = fused_mlp.fused_distilled_eval(field, x, dn)
@@ -331,11 +347,18 @@ def test_k1_and_k2_follow_an_in_place_finetune_step(cuda_device):
         ref = fused_mlp.march_render_reference(field, o_g, d_g, tn, tf, 96, 1e-7)
         s_k, c_k = fused_mlp.fused_distilled_eval(field, x, dn)
         s_p, c_p = fused_mlp.distilled_eval_reference(field, x, dn)
+        s_e, c_e = exact_field(field, x, dn)
     torch.cuda.synchronize()
     for k in ("alpha", "rgb"):
         assert float((after[k] - ref[k]).abs().max()) <= TOL, k
     assert float((after["rgb"] - before["rgb"]).abs().max()) > 10 * TOL  # the step moved the render
-    assert float((c_k - c_p).abs().max()) <= 1e-2 and float((torch.log1p(s_k) - torch.log1p(s_p)).abs().max()) <= 1e-2
+    # a NaN is never "beyond" the tolerance, so the share rule alone would pass it
+    for t in (s_k, c_k, s_p, c_p):
+        assert bool(torch.isfinite(t).all())
+    for kern, plain, exact in ((c_k, c_p, c_e), (torch.log1p(s_k), torch.log1p(s_p), torch.log1p(s_e))):
+        beyond_k = float(((kern - exact).abs() > TOL).float().mean())
+        beyond_p = float(((plain - exact).abs() > TOL).float().mean())
+        assert beyond_k <= EXACT_RATIO * beyond_p + EXACT_SLACK, (beyond_k, beyond_p)
     assert float((c_k - before_k2[1]).abs().max()) > 10 * TOL
 
 
