@@ -17,16 +17,21 @@ import torch
 def interpolate_features(
     fmap: torch.Tensor, pts: torch.Tensor, compute_grad: bool = True
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Sample ``fmap`` (H, W, C) at ``pts`` (N, 2) xy.
+    """Sample ``fmap`` (H, W, C) at ``pts`` (..., N, 2) xy.
 
-    Returns values (N, C), grads (N, C, 2) (zeros without compute_grad) and
-    valid (N,): all four neighbours inside the map."""
-    H, W, C = fmap.shape
+    Returns values (..., N, C), grads (..., N, C, 2) (zeros without
+    compute_grad) and valid (..., N): all four neighbours inside the map.
+    A batch of maps (B, H, W, C) is sampled at pts (B, ..., N, 2), each map
+    at its own points."""
+    *batch, H, W, C = fmap.shape
     x, y = pts[..., 0], pts[..., 1]
     x0, y0 = torch.floor(x), torch.floor(y)
     fx, fy = x - x0, y - y0
     base, valid = _corner_index(x0, y0, H, W)
-    flat = fmap.reshape(H * W, C)
+    if batch:
+        (B,) = batch
+        base = base + (torch.arange(B, device=base.device) * (H * W)).reshape(B, *[1] * (base.ndim - 1))
+    flat = fmap.reshape(-1, C)
     f00, f01 = flat[base], flat[base + 1]
     f10, f11 = flat[base + W], flat[base + W + 1]
     return (*_blend(f00, f01, f10, f11, fx, fy, compute_grad), valid)
@@ -55,7 +60,8 @@ def _blend(f00, f01, f10, f11, fx, fy, compute_grad: bool):
 
 
 def interpolate_scalar(fmap: torch.Tensor, pts: torch.Tensor):
-    """Sample a scalar map (H, W) at pts (N, 2); returns (values, valid)."""
+    """Sample a scalar map (H, W), or a batch (B, H, W), at pts as
+    :func:`interpolate_features`; returns (values, valid)."""
     v, _, valid = interpolate_features(fmap[..., None], pts, compute_grad=False)
     return v[..., 0], valid
 

@@ -1,7 +1,8 @@
 """Levenberg-Marquardt feature-metric pose alignment.
 
-Port of ``AlignConfig``, ``LevelData``, ``AlignState``, ``residual_cost``,
-``align_level``, ``align_level_traced`` and ``align_pyramid`` from
+Port of ``AlignConfig``, ``LevelData``, ``AlignState``,
+``_residuals_and_jacobian``, ``residual_cost``, ``align_level``,
+``align_level_traced`` and ``align_pyramid`` from
 ``pixtrack_tpu/align/lm.py``.
 
 The JAX ``lax.while_loop`` becomes a Python loop over the same masked carry:
@@ -84,11 +85,10 @@ def _point_weights(e2, cq, valid, data: LevelData, cfg: AlignConfig):
 
 
 def _pixel_pose_jacobian(p_cam, camera: Camera, scale):
-    """d p2d_feature / d (w, v) for the left se(3) update: (N, 2, 6)."""
-    N = p_cam.shape[0]
-    eye = torch.eye(3, dtype=p_cam.dtype, device=p_cam.device).expand(N, 3, 3)
+    """d p2d_feature / d (w, v) for the left se(3) update: (..., N, 2, 6)."""
+    eye = torch.eye(3, dtype=p_cam.dtype, device=p_cam.device).expand(*p_cam.shape[:-1], 3, 3)
     J_pcam = torch.cat([-so3_hat(p_cam), eye], dim=-1)
-    J_proj = camera.project_jacobian(p_cam) * scale[None, :, None]
+    J_proj = camera.project_jacobian(p_cam) * scale[:, None]
     return J_proj @ J_pcam
 
 
@@ -98,6 +98,43 @@ def _mean_cost(e2, w_static, valid, cfg: AlignConfig):
     rho = c2 * torch.log1p(e2 / c2)
     n = valid.sum()
     return torch.where(n > 0, (w_static * rho).sum() / n.clamp_min(1), torch.inf)
+
+
+def _residuals_and_jacobian(T: Pose, data: LevelData, camera: Camera, cfg: AlignConfig,
+                            compute_jac: bool = True):
+    """The dense residuals and Jacobian of the JAX package's
+    ``_residuals_and_jacobian``: r (..., N, C), J = d r / d (w, v) (..., N,
+    C, 6) (None without compute_jac), the IRLS weights w (..., N), valid
+    (..., N) and (e2, w_static). Autograd runs through all of it into
+    ``data.fmap``, ``data.conf``, ``data.f_ref`` and ``data.w_ref`` (the basin
+    trainer's normal equations are built from this J; ``_evaluate`` contracts
+    the channel axis first, which sums in another order).
+
+    The pose may carry batch axes: one pose per start, (P,). ``data`` may
+    carry a leading scene axis (B, ...: p3d (B, N, 3), fmap (B, H, W, C),
+    ...) with poses (B, P); the level's scale is shared."""
+    n_scene = data.p3d.ndim - 2
+    extra = T.t.ndim - 1 - n_scene
+
+    def lift(x):  # (*S, N, ...) -> (*S, 1 per pose axis, N, ...)
+        return x.reshape(*x.shape[:n_scene], *[1] * extra, *x.shape[n_scene:])
+
+    p_cam = T.transform(lift(data.p3d))
+    p2d_img, visible = camera.project(p_cam)
+    p2d = p2d_img * data.scale
+    f_q, grad, in_map = interpolate_features(data.fmap, p2d, compute_grad=compute_jac)
+    r = f_q - lift(data.f_ref)
+    valid = lift(data.mask) & visible & in_map
+    e2 = (r * r).sum(-1)
+    cq = None
+    if cfg.use_confidence and data.conf is not None:
+        cq, _ = interpolate_scalar(data.conf, p2d)
+    w_static, w = _point_weights(e2, cq, valid, dataclasses.replace(data, w_ref=lift(data.w_ref)), cfg)
+    if not compute_jac:
+        return r, None, w, valid, (e2, w_static)
+    J_pix = _pixel_pose_jacobian(p_cam, camera, data.scale)
+    J = torch.einsum("...ncd,...ndk->...nck", grad, J_pix)
+    return r, J, w, valid, (e2, w_static)
 
 
 def _evaluate(T: Pose, data: LevelData, camera: Camera, cfg: AlignConfig, compute_jac: bool):

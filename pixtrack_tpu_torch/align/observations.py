@@ -16,18 +16,26 @@ from pixtrack_tpu_torch.features.pyramid import FeaturePyramid
 from pixtrack_tpu_torch.geometry import Camera, Pose
 
 
+def _scale_tensor(sxy, device) -> torch.Tensor:
+    """A level's (sx, sy) as an f32 tensor made on ``device`` (fill kernels:
+    no copy from the host, so a CUDA graph can capture it)."""
+    return torch.stack([torch.full((), float(v), dtype=torch.float32, device=device) for v in sxy])
+
+
 def observe_points(
     pyramid: FeaturePyramid, T_w2c: Pose, camera: Camera, p3d: torch.Tensor,
     mask: Optional[torch.Tensor] = None, conf_floor: float = 0.2,
 ):
     """Per-level (features (N, C_l), weights (N,), valids (N,)) of world
-    points seen in one view; confidences are floored at ``conf_floor``."""
+    points seen in one view; confidences are floored at ``conf_floor``.
+    Batched views: a pyramid of (B, H, W, C) maps, poses (B,), points (B,
+    N, 3) give (B, N, ...)."""
     p2d_img, visible = camera.project(T_w2c.transform(p3d))
     if mask is not None:
         visible = visible & mask
     feats, weights, valids = [], [], []
     for lvl in range(pyramid.num_levels):
-        scale = torch.as_tensor(pyramid.scales[lvl], dtype=torch.float32, device=p3d.device)
+        scale = _scale_tensor(pyramid.scales[lvl], p3d.device)
         p2d = p2d_img * scale
         f, _, inmap = interpolate_features(pyramid.levels[lvl], p2d, compute_grad=False)
         valid = visible & inmap
@@ -36,7 +44,7 @@ def observe_points(
             w = conf_floor + (1.0 - conf_floor) * w.clamp(0.0, 1.0)
         else:
             w = torch.ones_like(valid, dtype=torch.float32)
-        feats.append(torch.where(valid[:, None], f, 0.0))
+        feats.append(torch.where(valid[..., None], f, 0.0))
         weights.append(torch.where(valid, w, 0.0))
         valids.append(valid)
     return tuple(feats), tuple(weights), tuple(valids)
@@ -66,7 +74,7 @@ def build_level_data(pyramid_query: FeaturePyramid, f_ref, w_ref, valid_ref, p3d
             LevelData(
                 p3d=p3d, f_ref=f_ref[lvl], w_ref=w_ref[lvl], mask=mask & valid_ref[lvl],
                 fmap=pyramid_query.levels[lvl], conf=conf,
-                scale=torch.as_tensor(pyramid_query.scales[lvl], dtype=torch.float32, device=p3d.device),
+                scale=_scale_tensor(pyramid_query.scales[lvl], p3d.device),
             )
         )
     return tuple(levels)

@@ -1,5 +1,8 @@
 """Feature extraction: feature pyramids (the UNet's, or the weight-free
-handcrafted one) for feature-metric alignment."""
+handcrafted one) for feature-metric alignment. The UNet's training and
+evaluation live in ``features.train`` (warp-consistency InfoNCE, the npz
+weight format), ``features.train_basin`` (training through the unrolled
+aligner) and ``features.evaluate`` (the held-out alignment benchmark)."""
 
 import os
 from pathlib import Path
@@ -11,7 +14,7 @@ from pixtrack_tpu_torch._device import resolve
 from pixtrack_tpu_torch.features.extractor import FeatureExtractor
 from pixtrack_tpu_torch.features.handcrafted import HandcraftedExtractor
 from pixtrack_tpu_torch.features.pyramid import FeaturePyramid
-from pixtrack_tpu_torch.features.unet import UNetExtractor, load_unet_weights
+from pixtrack_tpu_torch.features.unet import UNetExtractor, init_unet, load_unet_weights
 
 
 def default_unet_weights_path() -> Path:
@@ -42,5 +45,6 @@ __all__ = [
     "FeatureExtractor",
     "default_extractor",
     "default_unet_weights_path",
+    "init_unet",
     "load_unet_weights",
 ]

@@ -25,7 +25,7 @@ layer by layer). In f32 every rounding is the identity.
 from __future__ import annotations
 
 import json
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -35,16 +35,19 @@ import torch.nn.functional as F
 from pixtrack_tpu_torch._device import resolve
 
 _FLAX_GN_EPS = 1e-6
+# the standard deviation of a standard normal cut to (-2, 2)
+_TRUNC_STD = 0.87962566103423978
 
 
 class Conv2d(nn.Conv2d):
     """flax ``nn.Conv(dtype=...)`` as XLA runs it: weights and bias rounded to
     the input's dtype, the convolution's output rounded to it, the bias added
-    in f32. Returns the f32 sum, unrounded."""
+    in f32 (f64 for an f64 model). Returns that sum, unrounded."""
 
     def forward(self, x):
         y = self._conv_forward(x, self.weight.to(x.dtype), None)
-        return y.float() + self.bias.to(x.dtype).float()[:, None, None]
+        acc = torch.promote_types(x.dtype, torch.float32)
+        return y.to(acc) + self.bias.to(x.dtype).to(acc)[:, None, None]
 
 
 class GroupNorm(nn.GroupNorm):
@@ -57,7 +60,7 @@ class GroupNorm(nn.GroupNorm):
     def forward(self, y, dtype):
         B, C = y.shape[:2]
         per = C // self.num_groups
-        yr = y.to(dtype).float().reshape(B, self.num_groups, -1)
+        yr = y.to(dtype).to(y.dtype).reshape(B, self.num_groups, -1)
         inv_n = 1.0 / yr.shape[-1]
         mean = yr.sum(-1) * inv_n
         var = torch.clamp((yr * yr).sum(-1) * inv_n - mean * mean, min=0.0)
@@ -98,7 +101,7 @@ class Up(nn.Module):
 
 
 class Head(nn.Module):
-    """Per-level output: features and a sigmoid confidence."""
+    """Per-level output: features and a sigmoid confidence, both in f32."""
 
     def __init__(self, cin: int, dim: int):
         super().__init__()
@@ -106,7 +109,7 @@ class Head(nn.Module):
         self.conf = Conv2d(cin, 1, 1)
 
     def forward(self, x):
-        return self.feat(x), torch.sigmoid(self.conf(x)[:, 0])
+        return self.feat(x).float(), torch.sigmoid(self.conf(x)[:, 0]).float()
 
 
 class UNetExtractor(nn.Module):
@@ -190,6 +193,23 @@ def unet_state_dict_from_flax(params) -> dict:
     return out
 
 
+def flax_tree_from_unet(model: UNetExtractor) -> dict:
+    """The inverse of ``unet_state_dict_from_flax``: ``{"params": nested dict
+    of numpy}`` with conv kernels OIHW -> HWIO and GroupNorm ``weight`` ->
+    ``scale``, as ``UNetExtractor.init`` names them in the JAX package."""
+    tree: dict = {}
+    for name, p in model.state_dict().items():
+        *path, leaf = name.split(".")
+        v = p.detach().float().cpu().numpy()
+        if leaf == "weight":
+            leaf, v = ("kernel", v.transpose(2, 3, 1, 0)) if v.ndim == 4 else ("scale", v)
+        d = tree
+        for k in path:
+            d = d.setdefault(k, {})
+        d[leaf] = np.ascontiguousarray(v)
+    return {"params": tree}
+
+
 def flax_tree_from_npz(path) -> dict:
     """The nested parameter dict of a checkpoint written by the JAX
     package's ``save_unet_weights`` (a ``__meta__`` JSON list of flax key
@@ -204,6 +224,35 @@ def flax_tree_from_npz(path) -> dict:
                 d = d.setdefault(k, {})
             d[keys[-1]] = np.asarray(data[f"arr_{i}"])
     return tree
+
+
+def init_unet(generator: Optional[torch.Generator] = None, device=None, **kwargs) -> UNetExtractor:
+    """A ``UNetExtractor(**kwargs)`` on ``device`` (None is the CUDA card)
+    with flax's default initialisation, as the JAX package's ``init_unet``
+    gives it: conv kernels from ``variance_scaling(1.0, "fan_in",
+    "truncated_normal")`` (a standard normal cut at +-2, times
+    sqrt(1 / fan_in) / 0.87962566, the cut normal's stddev), zero biases,
+    GroupNorm weight 1 and bias 0. The draws come from ``generator`` (a CPU
+    generator; torch's default one when None): the same distribution as
+    JAX's, not its bits."""
+    device = resolve(device)
+    model = UNetExtractor(**kwargs)
+    for m in model.modules():
+        if isinstance(m, nn.Conv2d):
+            init_flax_conv_(m, generator)
+        elif isinstance(m, nn.GroupNorm):
+            nn.init.ones_(m.weight)
+            nn.init.zeros_(m.bias)
+    return model.to(device)
+
+
+@torch.no_grad()
+def init_flax_conv_(conv: nn.Conv2d, generator: Optional[torch.Generator] = None) -> None:
+    """flax's default conv initialisation in place: lecun_normal kernel, zero bias."""
+    fan_in = conv.in_channels * conv.kernel_size[0] * conv.kernel_size[1]
+    nn.init.trunc_normal_(conv.weight, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    conv.weight.mul_(float(np.sqrt(1.0 / fan_in) / _TRUNC_STD))
+    nn.init.zeros_(conv.bias)
 
 
 def load_unet_weights(path, device=None, dtype: torch.dtype = torch.bfloat16) -> UNetExtractor:

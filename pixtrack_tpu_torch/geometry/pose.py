@@ -71,7 +71,10 @@ class Pose:
         return Pose(R=Rt, t=-(Rt @ self.t[..., None])[..., 0])
 
     def transform(self, points: torch.Tensor) -> torch.Tensor:
-        """Apply to points (N, 3) or (3,)."""
+        """Apply to points (N, 3) or (3,). A batched pose (..., 3, 3) maps
+        point sets (..., N, 3), broadcast over N as in the JAX package."""
+        if self.R.ndim > 2 and points.ndim >= 2:
+            return torch.einsum("...ij,...nj->...ni", self.R, points) + self.t[..., None, :]
         return points @ self.R.transpose(-1, -2) + self.t
 
     def retract(self, delta: torch.Tensor) -> "Pose":

@@ -37,14 +37,24 @@ class Adam:
 
     @torch.no_grad()
     def step(self) -> None:
-        """One update from each parameter's ``.grad``, which is then cleared."""
+        """One update from each parameter's ``.grad``, which is then cleared;
+        the update above as multi-tensor (``_foreach``) ops, a dozen launches
+        for all the parameters together."""
         t = self.count + 1
         lr = exponential_decay(self.lr, self.n_steps, self.lr_final, self.count)
         c1, c2 = 1.0 - self.b1**t, 1.0 - self.b2**t
-        for p, mu, nu in zip(self.params, self.mu, self.nu):
-            g = p.grad
-            mu.mul_(self.b1).add_(g, alpha=1.0 - self.b1)
-            nu.mul_(self.b2).addcmul_(g, g, value=1.0 - self.b2)
-            p.sub_(lr * ((mu / c1) / (torch.sqrt(nu / c2) + self.eps)))
+        grads = [p.grad for p in self.params]
+        torch._foreach_mul_(self.mu, self.b1)
+        torch._foreach_add_(self.mu, grads, alpha=1.0 - self.b1)
+        torch._foreach_mul_(self.nu, self.b2)
+        torch._foreach_addcmul_(self.nu, grads, grads, value=1.0 - self.b2)
+        den = torch._foreach_div(self.nu, c2)
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, self.eps)
+        upd = torch._foreach_div(self.mu, c1)
+        torch._foreach_div_(upd, den)
+        torch._foreach_mul_(upd, lr)
+        torch._foreach_sub_(self.params, upd)
+        for p in self.params:
             p.grad = None
         self.count = t

@@ -124,8 +124,8 @@ class RunConfig:
         from pixtrack_tpu_torch.features import (
             FeatureExtractor,
             HandcraftedExtractor,
-            UNetExtractor,
             default_extractor,
+            init_unet,
             load_unet_weights,
         )
 
@@ -136,10 +136,8 @@ class RunConfig:
         if self.extractor == "unet":
             if self.unet_weights and os.path.exists(self.unet_weights):
                 model = load_unet_weights(self.unet_weights, device=device)
-            else:  # random weights from a fixed seed
-                with torch.random.fork_rng(devices=[]):
-                    torch.manual_seed(0)
-                    model = UNetExtractor().to(device).eval()
+            else:  # flax's initialisation from a fixed seed, as init_unet(PRNGKey(0))
+                model = init_unet(torch.Generator().manual_seed(0), device=device).eval()
             return FeatureExtractor(model, resize=self.resize)
         return FeatureExtractor(HandcraftedExtractor(device=device), resize=self.resize)
 

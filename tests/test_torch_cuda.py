@@ -517,3 +517,134 @@ def test_bundle_adjust_cli_round_trip_on_the_card(cuda_device, tmp_path):
     assert out.names == scene.names and list(out.point_ids) == list(scene.point_ids)
     assert 1e-3 < rotation_errors_deg(out, scene).max() < 5.0
     assert np.isfinite(out.xyz).all()
+
+
+# ------------------------------------------------- the UNet's training --
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def _grads_on_card_and_cpu(make_loss_fn, cfg, device):
+    """One loss and its gradients from the same f32 init and draws: on the
+    card in true f32 (TF32 off), on the CPU in f32 and in f64 (the reference
+    for both; oneDNN off, whose convolution backward is the least exact)."""
+    import copy
+
+    from pixtrack_tpu_torch._device import true_f32
+    from pixtrack_tpu_torch.features.unet import init_unet
+
+    cpu = init_unet(torch.Generator().manual_seed(0), device="cpu", dtype=torch.float32)
+    card = copy.deepcopy(cpu).to(device)
+    f64 = copy.deepcopy(cpu).double()
+    f64.dtype = torch.float64
+    draws = make_loss_fn(cpu, cfg).draws(torch.Generator().manual_seed(1))
+    with torch.backends.mkldnn.flags(enabled=False):
+        l_cpu = make_loss_fn(cpu, cfg)(draws=draws)
+        l_cpu.backward()
+        old = torch.get_default_dtype()
+        torch.set_default_dtype(torch.float64)
+        try:
+            make_loss_fn(f64, cfg)(draws=_tree_map_float(draws, torch.float64)).backward()
+        finally:
+            torch.set_default_dtype(old)
+        with true_f32():
+            l_card = make_loss_fn(card, cfg)(draws=_tree_to(draws, device))
+            l_card.backward()
+    return (l_cpu, l_card), [(n, p.grad, q.grad.cpu(), r.grad) for (n, p), q, r in
+                             zip(cpu.named_parameters(), card.parameters(), f64.parameters())]
+
+
+def _tree_map_float(tree, dtype):
+    if isinstance(tree, dict):
+        return {k: _tree_map_float(v, dtype) for k, v in tree.items()}
+    return tree.to(dtype) if tree.is_floating_point() else tree
+
+
+def _hold_card_gradients(losses, grads):
+    """The card's loss within 1e-5 of the CPU's; its gradient no further from
+    the f64 gradient than twice the CPU's f32 one, plus 1e-5 of the leaf's
+    largest entry (f32 gradients of the UNet are ill-conditioned: the CPU's
+    f32 InfoNCE gradient lies up to 1.3e-2 of a leaf's largest entry from
+    f64, its basin gradient 1.3e-4)."""
+    np.testing.assert_allclose(float(losses[1].detach()), float(losses[0].detach()), rtol=1e-5)
+    for name, g_cpu, g_card, g64 in grads:
+        scale = float(g64.abs().max())
+        e_cpu = float((g_cpu.double() - g64).abs().max())
+        e_card = float((g_card.double() - g64).abs().max())
+        assert e_card <= 2 * e_cpu + 1e-5 * scale, (name, e_card / scale, e_cpu / scale)
+
+
+@pytest.mark.cuda
+def test_basin_loss_and_gradients_on_the_card(cuda_device):
+    from pixtrack_tpu_torch.features.train_basin import BasinTrainConfig, make_basin_loss_fn
+
+    cfg = BasinTrainConfig(batch=1, n_perturb=2, size=48, tex_size=64, n_points=32, k_steps=2)
+    _hold_card_gradients(*_grads_on_card_and_cpu(make_basin_loss_fn, cfg, cuda_device))
+
+
+@pytest.mark.cuda
+def test_infonce_loss_and_gradients_on_the_card(cuda_device):
+    from pixtrack_tpu_torch.features.train import FeatureTrainConfig, make_loss_fn
+
+    cfg = FeatureTrainConfig(batch=2, size=64, n_pairs=64)
+    _hold_card_gradients(*_grads_on_card_and_cpu(make_loss_fn, cfg, cuda_device))
+
+
+@pytest.mark.cuda
+def test_unet_weights_saved_on_the_card_load_on_the_cpu(cuda_device, tmp_path):
+    from pixtrack_tpu_torch.features.train import load_unet_weights, save_unet_weights
+    from pixtrack_tpu_torch.features.unet import init_unet
+
+    model = init_unet(torch.Generator().manual_seed(3), device=cuda_device)
+    save_unet_weights(tmp_path / "card.npz", model)
+    back = load_unet_weights(tmp_path / "card.npz", device="cpu").state_dict()
+    for k, v in model.state_dict().items():
+        assert torch.equal(back[k], v.cpu()), k
+
+
+@pytest.mark.cuda
+def test_graphed_basin_step_matches_the_eager_step(cuda_device):
+    """The basin step captured as a CUDA graph (the trainer's default on the
+    card) against the same step eager, from the same weights and draws, and
+    a second replay with other draws against eager on those. In a fresh
+    process the two agree bit for bit (loss, norm and every gradient; H100
+    80GB HBM3, 700 W), but cuDNN may pick another convolution algorithm for
+    the capture when the memory state differs, so the UNet runs in f32 here
+    and the rule allows another summation order: the loss within 1e-5
+    relative, the global norm 1e-3, each clipped gradient within 2e-3 of its
+    leaf's largest entry (f32 gradients of the UNet are ill-conditioned, so
+    another summation order moves them far more than the loss). A capture
+    that read stale draws or weights would part by O(1)."""
+    import copy
+
+    from pixtrack_tpu_torch._device import true_f32
+    from pixtrack_tpu_torch.features.train_basin import (
+        BasinTrainConfig,
+        clip_by_global_norm,
+        graphed_loss_and_grads,
+        make_basin_loss_fn,
+    )
+    from pixtrack_tpu_torch.features.unet import init_unet
+
+    cfg = BasinTrainConfig(batch=2, n_perturb=4, size=96, tex_size=128, n_points=128, k_steps=3)
+    eager = init_unet(torch.Generator().manual_seed(0), device=cuda_device, dtype=torch.float32)
+    graphed = copy.deepcopy(eager)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    with true_f32():
+        run = None
+        for _ in range(2):
+            draws = make_basin_loss_fn(eager, cfg).draws(gen)
+            loss_e = make_basin_loss_fn(eager, cfg)(draws=draws)
+            loss_e.backward()
+            norm_e = clip_by_global_norm(list(eager.parameters()), 1.0)
+            run = run or graphed_loss_and_grads(make_basin_loss_fn(graphed, cfg), list(graphed.parameters()), draws)
+            loss_g, norm_g = run(draws)
+            torch.cuda.synchronize()
+            np.testing.assert_allclose(float(loss_g.detach()), float(loss_e.detach()), rtol=1e-5)
+            np.testing.assert_allclose(float(norm_g), float(norm_e), rtol=1e-3)
+            for (name, p), q in zip(eager.named_parameters(), graphed.parameters()):
+                scale = float(p.grad.abs().max())
+                assert float((p.grad - q.grad).abs().max()) <= 2e-3 * scale, name
+                p.grad = None

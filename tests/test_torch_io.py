@@ -188,15 +188,17 @@ def _imports(tree):
 
 
 def test_import_guard():
-    """No file of the port, nor chip_smoke.py, smoke_worlds.py or
-    scripts_dev/asset_build_full.py (all run on the card's machine), imports
+    """No file of the port, nor chip_smoke.py, smoke_worlds.py,
+    scripts_dev/asset_build_full.py or scripts_dev/train_basin_card.py (all
+    run on the card's machine), imports
     JAX, flax, optax, the JAX package or the tests, anywhere; and the optional
     host libraries (cv2, h5py, yaml, PIL, imageio, matplotlib, tqdm, msgpack)
     are imported inside functions only, never when a module is imported."""
     import ast
 
     srcs = sorted((REPO / "pixtrack_tpu_torch").rglob("*.py")) + [
-        REPO / "chip_smoke.py", REPO / "smoke_worlds.py", REPO / "scripts_dev" / "asset_build_full.py"]
+        REPO / "chip_smoke.py", REPO / "smoke_worlds.py", REPO / "scripts_dev" / "asset_build_full.py",
+        REPO / "scripts_dev" / "train_basin_card.py"]
     assert len(srcs) >= 45
     seen_lazy = set()
     for src in srcs:
