@@ -109,7 +109,21 @@ nothing of JAX. Phases:
     handcrafted pyramid, held to JAX's per-start outcome, and for phase 35's
     UNet, held between them;
 37. phase 7's fused frame in open loop with phase 35's UNet, K1 launches
-    counted.
+    counted;
+38. the command line: ``demo`` (6 frames, the JAX test's success gate);
+    ``track`` over phases 21-24's object folder with the mesh world's
+    first 10 queries as PNGs, its ``poses.pkl`` against the same tracker
+    called through the API; ``eval`` of those poses with the ground truth
+    added, against ``evaluate_trajectory``; ``visualize`` of three poses;
+39. the learned SfM components: the dense descriptor and SuperPoint (the
+    candidate weights) on a 448 px render, and the attention matcher
+    (seeded init weights) on one arc-rig pair, each on the card against
+    the port on the CPU; ms per call; the deployment A/B of the dense
+    descriptor against the patch descriptor on held-out mesh pairs, held to
+    JAX's counts on the CPU (``scripts_dev/learned_mapping_jax.json``);
+40. ``reconstruct --detector dense`` over phase 30's images and what it
+    runs at seeds 1-7 (in worker processes, while phases 38-39 run), the
+    median held to JAX's over seeds 0-7.
 
 Every phase prints its wall time. Every check raises on failure, so any failed phase exits non-zero. The
 second-to-last line is the kernel table as JSON; the last line is
@@ -2242,30 +2256,27 @@ def phase_photometric(scene, images, ref, diameter):
     hold_to_jax("photometric", refine_outcome(s, scene), ref["photometric"], diameter)
 
 
-def phase_rebuild(device):
-    """Phases 21-33, each timed, in a work directory of their own; returns
-    phase 23's K1 / K2 launches, phase 25's results and K1 launches, and
-    the results of phases 26-29 and 30-33."""
-    import tempfile
-
+def phase_rebuild(device, work: Path):
+    """Phases 21-33, each timed, in the work directory ``work`` (the object
+    folder of phases 21-24; phase 38 tracks it); returns phase 23's K1 / K2
+    launches, phase 25's results and K1 launches, and the results of phases
+    26-29 and 30-33."""
     from pixtrack_tpu_torch.nerf import fused_mlp
 
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_sfm_") as tmp:
-        work = Path(tmp)
-        obj = timed_phase("phase 21, the procedural house", phase_house, work)
-        scene = timed_phase("phase 22, sfm-from-obj", phase_sfm_from_obj, work, obj)
-        nerf_sfm_launches = timed_phase("phase 23, train-nerf and nerf-sfm", phase_nerf_sfm, work,
-                                        len(scene.point_ids))
-        aug_sfm = timed_phase("phase 24, augment", phase_augment, work, scene)
-        fused_mlp.reset_launch_counts()
-        _, _, mesh, _ = timed_phase("phase 25, the mesh world over the card-built model", phase_mesh, device,
-                                    aug_sfm=aug_sfm, gates=REBUILT_GATES, label="rebuilt")
-        launches = fused_mlp.launch_count(fused_mlp.K1)
-        log(f"[rebuilt] closed loop over the card-built model: chains {mesh['chains']} (JAX on its own model "
-            f"{[ok for ok, _ in JAX_REBUILT_CHAINS]}; phase 7 on the shipped model above), open loop "
-            f"{mesh['open']}/20 (JAX 20/20)")
-        refined = phase_refine(device, work, scene)
-        unposed = phase_unposed(device, work)
+    obj = timed_phase("phase 21, the procedural house", phase_house, work)
+    scene = timed_phase("phase 22, sfm-from-obj", phase_sfm_from_obj, work, obj)
+    nerf_sfm_launches = timed_phase("phase 23, train-nerf and nerf-sfm", phase_nerf_sfm, work,
+                                    len(scene.point_ids))
+    aug_sfm = timed_phase("phase 24, augment", phase_augment, work, scene)
+    fused_mlp.reset_launch_counts()
+    _, _, mesh, _ = timed_phase("phase 25, the mesh world over the card-built model", phase_mesh, device,
+                                aug_sfm=aug_sfm, gates=REBUILT_GATES, label="rebuilt")
+    launches = fused_mlp.launch_count(fused_mlp.K1)
+    log(f"[rebuilt] closed loop over the card-built model: chains {mesh['chains']} (JAX on its own model "
+        f"{[ok for ok, _ in JAX_REBUILT_CHAINS]}; phase 7 on the shipped model above), open loop "
+        f"{mesh['open']}/20 (JAX 20/20)")
+    refined = phase_refine(device, work, scene)
+    unposed = phase_unposed(device, work)
     return nerf_sfm_launches, mesh, launches, refined, unposed
 
 
@@ -2546,20 +2557,26 @@ def ransacs_card_vs_cpu(calls: list) -> dict:
             "other_choice_share": total["other_choice"] / max(total["calls"], 1), "calls": total["calls"]}
 
 
-def run_mapper(images, cam_rec, label: str, names=None, **kw):
+def run_mapper(images, cam_rec, label: str, names=None, detector=None, match_kw=None, **kw):
     """``incremental_sfm`` on the card at the ``reconstruct`` settings (KA,
-    two featuremetric BA rounds, min_score 0.5, ratio 0.98) and ``kw``,
-    timed by stage; returns (model, wall seconds, {stage: seconds})."""
+    two featuremetric BA rounds, min_score 0.5, ratio 0.98 unless
+    ``match_kw`` says otherwise), ``detector`` (Harris + patches when None)
+    and ``kw``, timed by stage; returns (model, wall seconds, {stage:
+    seconds})."""
     import torch
 
     from pixtrack_tpu_torch.mapping.incremental import incremental_sfm
 
     timer = NestedTimer()
+    parts = mapper_parts()
+    if detector is not None:  # a learned detector takes detect_and_describe's place and its part
+        parts = [p for p in parts if p[2] != "detect + describe"]
+        detector = timer.wrap(detector, "detect + describe")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with timer.patched(mapper_parts()):
-        rec = incremental_sfm(images, cam_rec, names=names, match_kw=dict(min_score=0.5, ratio=0.98),
-                              featuremetric_ka=True, featuremetric_ba_rounds=2, **kw)
+    with timer.patched(parts):
+        rec = incremental_sfm(images, cam_rec, names=names, match_kw=match_kw or dict(min_score=0.5, ratio=0.98),
+                              featuremetric_ka=True, featuremetric_ba_rounds=2, detector=detector, **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     split = dict(timer.times)
@@ -2662,7 +2679,7 @@ def phase_arc(views: dict, truth: dict, cam_rec, ref: dict, jobs: list):
     check(med["global_deg"] <= jax_med["global_deg"] + ARC_MARGIN_DEG,
           f"arc: global rotation {med['global_deg']:.3f} deg over JAX's {jax_med['global_deg']:.3f} + {ARC_MARGIN_DEG}")
     check(cmp["agree_share"] >= RANSAC_AGREE_SHARE, f"arc: RANSAC inlier flags agree on {cmp['agree_share']:.5f}")
-    return {k: float(np.median([sp[k] for sp in splits])) for k in splits[0]}
+    return {k: float(np.median([sp[k] for sp in splits])) for k in splits[0]}, med
 
 
 def cli_camera(h: int, w: int):
@@ -2822,12 +2839,13 @@ def phase_unposed(device, work: Path):
                                 dict(max_keypoints=768, nms_radius=1, seed=seed)) for seed in range(1, ARC_SEEDS)]
         cli_jobs = [pool.submit(mapper_job, views, cli_camera(h, w), truth, f"reconstruct's mapper, seed {seed}",
                                 dict(max_keypoints=1024, nms_radius=1, seed=seed)) for seed in range(1, CLI_SEEDS)]
-        arc_split = timed_phase("phase 30, the arc rig unposed", phase_arc, views, truth, cam_rec, ref, arc_jobs)
+        arc_split, arc_med = timed_phase("phase 30, the arc rig unposed", phase_arc, views, truth, cam_rec, ref,
+                                         arc_jobs)
         timed_phase("phase 31, reconstruct (the CLI)", phase_reconstruct_cli, arc_dir, views, truth, ref, cli_jobs)
     model, ring_truth, split = timed_phase("phase 32, the house's ring unposed", phase_ring, work, ref)
     tracked = timed_phase("phase 33, tracking over the unposed model", phase_track_unposed, device, work, model,
                           ring_truth, ref)
-    return {"arc_split": arc_split, "split": split, **tracked}
+    return {"arc_split": arc_split, "arc_median": arc_med, "split": split, **tracked}
 
 
 # ------------------------------------------------------------ phases 34-37 --
@@ -2851,10 +2869,11 @@ EVAL_FLAGS_SHARE, EVAL_COUNT_SLACK = 0.9, 3
 # The card-trained UNet must converge on more starts than the handcrafted
 # pyramid and on at least the shipped UNet's count less BASIN_MARGIN: the
 # spread (max - min) of the recipe's outcome at seeds 1 and 2 over the
-# second half of phase 35's run, steps 250-500 (scripts_dev/
-# train_basin_card.py --eval-at 250 500; H100 80GB HBM3, 700 W): seed 1
-# 36, 39, seed 2 33, 39 of 48. Seed 0, the run judged, sets nothing.
-BASIN_MARGIN = 39 - 33
+# second half of phase 35's run, steps 250-500, with the graphed trainer
+# (scripts_dev/train_basin_card.py --eval-at 250 500, uncut; H100 80GB HBM3,
+# 700 W): seed 1 34, 43, seed 2 32, 34 of 48 (at 2000 steps 45 and 38; seed
+# 0 35, 47, 46). Seed 0, the run judged, sets nothing.
+BASIN_MARGIN = 43 - 32
 
 
 def basin_step_split(device, cfg, steps=3) -> dict:
@@ -3106,6 +3125,361 @@ def phase_unet_training(device):
     return {"infonce": infonce, "basin": basin, "counts": counts, **tracked}
 
 
+# ------------------------------------------------------------ phases 38-40 --
+# The rest of the command line and the learned SfM components at inference.
+# Phase 38 drives the subcommands a user calls to track: ``demo`` (an
+# analytic world, no kernel), ``track`` over phases 21-24's object folder
+# (its 300-step snapshot baked, so no kernel either) with the mesh world's
+# queries, ``eval`` and ``visualize`` of its poses. Phase 39 holds the
+# dense descriptor, SuperPoint and the attention matcher on the card to the
+# port on the CPU, times them, and reruns the deployment A/B behind
+# assets/dense_descriptor_eval.json. Phase 40 is phase 30's arc rig through
+# ``reconstruct --detector dense``. The JAX package's numbers come from
+# scripts_dev/learned_mapping_jax.py (JAX on the CPU).
+LEARNED_JAX = REPO / "scripts_dev" / "learned_mapping_jax.json"
+# tests/test_config_cli.py::test_demo_subcommand's gate (3 frames there, 6 here)
+DEMO_FRAMES, DEMO_GATE = 6, 2 / 3
+TRACK_FRAMES, CLI_POSE_TOL = 10, 1e-5
+# the nets on the card against the port on the CPU; the learned matcher's
+# matches0 equal on this share of one arc-rig pair's keypoints
+NET_TOL, MATCH_SHARE = 1e-4, 0.99
+# the deployment A/B (scripts_dev/train_dense_descriptor_run.py's protocol)
+AB = dict(n_scenes=2, n_views=12, res=192, max_kp=256, min_deg=20.0, max_deg=52.0, seed=31)
+AB_MATCH = {"patch": (0.5, 0.98), "learned": (0.1, 0.98)}
+AB_COUNT_TOL = 0.03  # each count within 3 % of JAX's on the CPU
+TPU_AB = {"patch": (2292, 4031), "learned": (4499, 6543)}  # assets/dense_descriptor_eval.json: correct, proposed
+# Phase 40 runs ``reconstruct --detector dense`` (seed 0) and what it runs at
+# seeds 1..DENSE_SEEDS-1 in the mapper workers. At the CLI's camera (f =
+# 230.4 against the rig's 211.2) the dense descriptor's mapper lands tens of
+# degrees off at some seeds in both packages (the global averaging; JAX on
+# the CPU at seeds 0-7: 1.99, 2.47, 1.46, 2.27, 57.37, 7.78, 3.08, 21.45 deg,
+# scripts_dev/learned_mapping_jax.py dense SEED), and on equal draws the two
+# packages fail at different seeds (scripts_dev/dense_reconstruct_seeds.py
+# paired SEED, seeds 0-7: JAX 4, the port 1 beyond 5 deg). So no seed judges
+# it, and a spread over three seeds (phase 31's rule) is tens of degrees: the
+# phase holds the median over DENSE_SEEDS seeds to JAX's median over its
+# seeds 0-7, registered >= JAX's - 1 and the global rotation median <= JAX's
+# + DENSE_MARGIN_DEG, the larger over the two packages of the gap between
+# the medians of seeds 0-7 and seeds 8-15 on the CPU (JAX: 2.771 against
+# 1.922 deg; the port, dense_reconstruct_seeds.py port 0..15: 6.623 against
+# 3.279 deg).
+DENSE_SEEDS = 8
+DENSE_MARGIN_DEG = 6.623 - 3.279
+
+
+def capture_cli(argv) -> str:
+    """What ``pipelines.cli.main(argv)`` prints."""
+    import io
+
+    from pixtrack_tpu_torch.pipelines import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(argv)
+    return buf.getvalue()
+
+
+def phase_command_line(device, work: Path, assets) -> dict:
+    """Phase 38: ``demo``; ``track`` over phases 21-24's object folder
+    (``work``) with the mesh world's first TRACK_FRAMES queries as PNGs,
+    against the same tracker through the API; ``eval`` of its poses with the
+    ground truth added, against ``evaluate_trajectory`` of the API's;
+    ``visualize`` of three poses."""
+    import pickle
+
+    import torch
+
+    from pixtrack_tpu_torch.eval.metrics import evaluate_trajectory
+    from pixtrack_tpu_torch.geometry.nerf_transform import NerfTransform
+    from pixtrack_tpu_torch.mapping.mesh_render import write_png
+    from pixtrack_tpu_torch.mapping.nerf_dataset import estimate_aabb_from_scene
+    from pixtrack_tpu_torch.nerf import fused_mlp
+    from pixtrack_tpu_torch.nerf.testbed import initialize_testbed
+    from pixtrack_tpu_torch.pipelines.assets import layout
+    from pixtrack_tpu_torch.sfm.scene import SceneModel
+    from pixtrack_tpu_torch.tracking import PixTrackTracker
+    from pixtrack_tpu_torch.utils.config import ObjectConfig, RunConfig
+    from pixtrack_tpu_torch.utils.io import ImageIterator
+
+    fused_mlp.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = capture_cli(["demo", "--frames", str(DEMO_FRAMES)])
+    demo = json.loads(out[out.index("{"):])
+    log(f"[demo] {demo['n_frames']} frames, success (10 cm, 10 deg) {demo['success_10cm10deg']:.3f}, rotation error "
+        f"mean {demo['mean_r_deg']:.3f} deg, median {demo['median_r_deg']:.3f}; {time.perf_counter() - t0:.1f} s")
+    check(demo["n_frames"] == DEMO_FRAMES and demo["success_10cm10deg"] >= DEMO_GATE,
+          f"demo: {demo['n_frames']} frames, success {demo['success_10cm10deg']:.3f} < {DEMO_GATE:.3f}")
+
+    query = work / "queries"
+    query.mkdir(exist_ok=True)
+    frames = assets.frames[:TRACK_FRAMES]
+    for name, img in frames:
+        write_png(query / name, img)
+    out_dir = work / "track_out"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats = json.loads(capture_cli(["track", "--object_path", str(work), "--query", str(query), "--frames",
+                                    str(TRACK_FRAMES), "--out_dir", str(out_dir)]).strip().splitlines()[-1])
+    cli_wall = time.perf_counter() - t0
+    with open(out_dir / "poses.pkl", "rb") as f:
+        poses = pickle.load(f)
+    paths = layout(work)
+    scene, tf = SceneModel.load(paths["aug_sfm"]), NerfTransform.load(paths["nerf2sfm"])
+    t0 = time.perf_counter()
+    testbed = initialize_testbed(paths["snapshot"], aabb=estimate_aabb_from_scene(scene, tf), tighten=True,
+                                 device=device)
+    torch.cuda.synchronize()
+    bake_s = time.perf_counter() - t0
+    run_cfg = RunConfig()
+    tracker = PixTrackTracker(scene, run_cfg.make_extractor(device), testbed, tf,
+                              run_cfg.tracker_config(ObjectConfig()), align_cfg=run_cfg.align_config())
+    tracker.run(ImageIterator(query, max_frames=TRACK_FRAMES), max_frames=TRACK_FRAMES)
+    api = tracker.pose_history
+    check(sorted(poses) == sorted(api) == sorted(n for n, _ in frames), "track: the CLI's and the API's frames differ")
+    diff = max(float(np.abs(poses[n]["T_refined"] - api[n]["T_refined"]).max()) for n in api)
+    rot = [rot_err_deg(poses[n]["T_refined"][:3, :3], assets.gt[k].R.cpu().numpy()) for k, (n, _) in enumerate(frames)]
+    log(f"[track] {stats}; {cli_wall:.1f} s through the CLI (the snapshot's load, bake and bounds sweep "
+        f"{bake_s:.1f} s of it through the API); poses against the same tracker through the API: max "
+        f"|dT| {diff:.2e}; rotation errors against the orbit (deg): {[round(r, 2) for r in rot]}, median "
+        f"{np.median(rot):.2f}; successes {sum(bool(poses[n]['success']) for n in poses)}/{TRACK_FRAMES}")
+    check(diff <= CLI_POSE_TOL, f"track: the CLI's poses are {diff:.2e} from the API's")
+
+    with_gt = {}
+    for k, (n, _) in enumerate(frames):
+        with_gt[n] = dict(poses[n], gt_pose=assets.gt[k].to_4x4().cpu().numpy())
+    with open(out_dir / "poses_gt.pkl", "wb") as f:
+        pickle.dump(with_gt, f)
+    got = json.loads(capture_cli(["eval", "--poses", str(out_dir / "poses_gt.pkl")]))
+    ref = evaluate_trajectory([(api[n]["T_refined"][:3, :3], api[n]["T_refined"][:3, 3]) for n, _ in frames],
+                              [(T.R.cpu().numpy(), T.t.cpu().numpy()) for T in assets.gt[:TRACK_FRAMES]])
+    gap = max(abs(got[k] - ref[k]) for k in ref)
+    log(f"[eval] {json.dumps(got)}; against evaluate_trajectory of the API's poses: max gap {gap:.2e}")
+    check(sorted(got) == sorted(ref) and gap <= 1e-6 * max(1.0, max(abs(v) for v in ref.values())),
+          f"eval: {got} against {ref}")
+
+    three = {n: poses[n] for n, _ in frames[:3]}
+    with open(out_dir / "poses_3.pkl", "wb") as f:
+        pickle.dump(three, f)
+    t0 = time.perf_counter()
+    capture_cli(["visualize", "--object_path", str(work), "--poses", str(out_dir / "poses_3.pkl"), "--out_dir",
+                 str(work / "viz")])
+    written = sorted(p.name for p in (work / "viz").glob("result_*.jpg"))
+    log(f"[visualize] {len(written)} overlays in {time.perf_counter() - t0:.1f} s: {written}")
+    check(len(written) == 3, f"visualize: {len(written)} overlays, not 3")
+    launches = {k: fused_mlp.launch_count(k) for k in (fused_mlp.K1, fused_mlp.K2)}
+    log(f"[command line] K1 / K2 launches over phase 38: {launches[fused_mlp.K1]} / {launches[fused_mlp.K2]} (the "
+        "demo's field is analytic, the snapshot is baked: no kernel is on these paths)")
+    return {"demo": demo["success_10cm10deg"], "track_rot_median": float(np.median(rot)), "pose_diff": diff}
+
+
+def host_ms(fn, iters: int = 5) -> float:
+    """Host wall time of one call of ``fn`` (which ends in a copy to the host),
+    after one warm-up call, synchronised."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def bank_counts(bank: dict, min_score: float, ratio: float) -> dict:
+    """Correct / proposed / possible mutual-NN + ratio matches over a pair bank."""
+    from pixtrack_tpu_torch.mapping.matcher import match_descriptors
+
+    c = prop = poss = 0
+    for p in range(bank["gt"].shape[0]):
+        n0, n1 = int(bank["valid0"][p].sum()), int(bank["valid1"][p].sum())
+        gt = bank["gt"][p][:n0]
+        m0 = np.asarray(match_descriptors(bank["desc0"][p][:n0], bank["desc1"][p][:n1], min_score=min_score,
+                                          ratio=ratio)[0])
+        prop += int((m0 >= 0).sum())
+        c += int(((m0 == gt) & (gt >= 0) & (m0 >= 0)).sum())
+        poss += int((gt >= 0).sum())
+    return {"correct": c, "proposed": prop, "gt_possible": poss, "pairs": int(bank["gt"].shape[0]),
+            "precision": c / max(prop, 1)}
+
+
+def phase_learned(device, work: Path, arc_views: dict) -> dict:
+    """Phase 39: the dense descriptor and SuperPoint (the candidate weights)
+    on a 448 px render of the house, and the attention matcher (seeded init
+    weights) on one arc-rig pair, card against the port on the CPU; their
+    times per call; the deployment A/B on the card."""
+    import copy
+
+    import torch
+
+    from pixtrack_tpu_torch.mapping import attention_matcher as am
+    from pixtrack_tpu_torch.mapping import dense_descriptor as dd
+    from pixtrack_tpu_torch.mapping import superpoint as sp
+    from pixtrack_tpu_torch.mapping.detector import detect_and_describe, detect_keypoints
+    from pixtrack_tpu_torch.mapping.mesh_render import read_png
+    from pixtrack_tpu_torch.mapping.train_matcher import build_mesh_pair_bank
+    from pixtrack_tpu_torch.pipelines.assets import layout
+
+    cpu = torch.device("cpu")
+    img = read_png(sorted(layout(work)["mapping"].glob("*.png"))[0])
+    check(img.shape[:2] == (448, 448), f"learned: the view is {img.shape}")
+    net, net_cpu = (dd.load_descriptor_weights(REPO / "assets" / "dense_descriptor.npz", device=d) for d in (device, cpu))
+    x = torch.from_numpy(img.astype(np.float32) / 255.0)[None]
+    with torch.no_grad():
+        err_map = float((net(x.to(device)).cpu() - net_cpu(x)).abs().max())
+    kp = detect_keypoints(img, max_keypoints=1024, device=cpu)[0].numpy()
+    err_desc = float(np.abs(dd.describe_at_dense(net, img, kp) - dd.describe_at_dense(net_cpu, img, kp)).max())
+    log(f"[dense descriptor] 448 px: the map on the card against the CPU {err_map:.2e}, descriptors at "
+        f"{len(kp)} Harris keypoints {err_desc:.2e}")
+    check(max(err_map, err_desc) <= NET_TOL, f"dense descriptor: card against CPU {err_map:.2e} / {err_desc:.2e}")
+
+    cand = REPO / "assets" / "superpoint_candidate.npz"
+    spn, spn_cpu = (sp.load_superpoint_weights(cand, device=d) for d in (device, cpu))
+    g = sp._grey(img, cpu)[None, ..., None]
+    with torch.no_grad():
+        (det, desc), (det_c, desc_c) = (a.cpu() for a in spn(g.to(device))), spn_cpu(g)
+    err_det, err_sdesc = float((det - det_c).abs().max()), float((desc - desc_c).abs().max())
+    (k1, s1, d1), (k2, s2, d2) = (sp.extract_superpoint(n, img, max_keypoints=1024) for n in (spn, spn_cpu))
+    dist = np.linalg.norm(k1[:, None] - k2[None], axis=-1) if len(k1) and len(k2) else np.zeros((0, 0))
+    nn = dist.argmin(axis=1) if dist.size else np.zeros(0, int)
+    same_set = len(k1) == len(k2) and sorted(nn) == list(range(len(k2))) and (
+        dist[np.arange(len(k1)), nn].max(initial=0.0) <= 1e-3)
+    log(f"[superpoint] 448 px, candidate weights: logits card against CPU {err_det:.2e} (largest "
+        f"{float(det_c.abs().max()):.1f}), descriptors {err_sdesc:.2e}; extraction {len(k1)} / {len(k2)} keypoints, "
+        f"the same set {same_set}")
+    check(err_det <= NET_TOL * max(1.0, float(det_c.abs().max())) and err_sdesc <= NET_TOL,
+          f"superpoint: card against CPU {err_det:.2e} / {err_sdesc:.2e}")
+    check(same_set, "superpoint: the card's keypoints are not the CPU's")
+
+    # untrained weights score no pair above the default min_score (0.2): at 0 the mutual argmax
+    # that beats the dustbin still decides, so the comparison has matches to compare
+    matcher = am.init_matcher(generator=torch.Generator().manual_seed(0), device=device)
+    lm, lm_cpu = (am.LearnedMatcher(m, min_score=0.0) for m in (matcher, copy.deepcopy(matcher).to(cpu)))
+    feats = [detect_and_describe(arc_views[i], max_keypoints=1024, nms_radius=1, device=device) for i in (1, 2)]
+    (kp0, _, d0), (kp1, _, d1_) = ([t.cpu().numpy() for t in f] for f in feats)
+    shape = arc_views[1].shape
+    m_card, s_card = lm(d0, kp0, shape, d1_, kp1, shape)
+    m_cpu, s_cpu = lm_cpu(d0, kp0, shape, d1_, kp1, shape)
+    n0, n1 = len(kp0), len(kp1)
+    logp_err = float(np.abs(lm.log_probs(d0, kp0, shape, d1_, kp1, shape)[: n0 + 1, : n1 + 1]
+                            - lm_cpu.log_probs(d0, kp0, shape, d1_, kp1, shape)[: n0 + 1, : n1 + 1]).max())
+    share = float((m_card == m_cpu).mean())
+    log(f"[attention matcher] seeded init weights, arc views 1-2 ({n0} / {n1} keypoints, bucket "
+        f"{am.bucket_size(n0, n1)}), min_score 0: matches0 equal on {share:.4f} ({int((m_card >= 0).sum())} / "
+        f"{int((m_cpu >= 0).sum())} matches), scores {float(np.abs(s_card - s_cpu).max()):.2e}, log-probabilities "
+        f"{logp_err:.2e}")
+    check(share >= MATCH_SHARE and (m_cpu >= 0).sum() > 0 and logp_err <= NET_TOL,
+          f"attention matcher: matches0 equal on {share:.4f}, log-probabilities {logp_err:.2e}")
+
+    rng = np.random.default_rng(0)
+    kp_d = detect_keypoints(img, max_keypoints=1024, device=device)[0].cpu().numpy()
+    times = {"describe_at_dense, 448 px": host_ms(lambda: dd.describe_at_dense(net, img, kp_d)),
+             "extract_superpoint, 448 px": host_ms(lambda: sp.extract_superpoint(spn, img, max_keypoints=1024))}
+    for n in (256, 1024):
+        dm, km = rng.normal(size=(2, n, 845)).astype(np.float32), rng.uniform(0, 447, (2, n, 2))
+        times[f"LearnedMatcher, {n} keypoints"] = host_ms(lambda: lm(dm[0], km[0], (448, 448), dm[1], km[1], (448, 448)))
+    log("[learned, ms per call] " + ", ".join(f"{k} {v:.2f}" for k, v in times.items()))
+
+    def learned_detector(image, max_keypoints=256, **kw):
+        kp_, sc_, _ = detect_and_describe(image, max_keypoints=max_keypoints, device=device, **kw)
+        return kp_, sc_, dd.describe_at_dense(net, image, kp_.cpu().numpy())
+
+    ref = json.loads(LEARNED_JAX.read_text())["ab"]
+    t0 = time.perf_counter()
+    ab = {}
+    for name, det_fn in (("patch", None), ("learned", learned_detector)):
+        bank = build_mesh_pair_bank(work / "ab" / name, detector=det_fn, device=device, **AB)
+        ab[name] = bank_counts(bank, *AB_MATCH[name])
+        r = ref[name]
+        log(f"[A/B] {name} at {AB_MATCH[name]}: correct {ab[name]['correct']} of {ab[name]['proposed']} proposed "
+            f"(precision {ab[name]['precision']:.4f}), {ab[name]['gt_possible']} possible over {ab[name]['pairs']} "
+            f"pairs; JAX on the CPU {r['correct']} of {r['proposed']} ({r['precision']:.4f}), {r['gt_possible']}, "
+            f"{r['pairs']} pairs; the TPU's run (assets/dense_descriptor_eval.json) {TPU_AB[name][0]} of "
+            f"{TPU_AB[name][1]}")
+        for k in ("correct", "proposed"):
+            check(abs(ab[name][k] - r[k]) <= AB_COUNT_TOL * r[k], f"A/B: {name} {k} {ab[name][k]} against JAX's {r[k]}")
+    log(f"[A/B] {time.perf_counter() - t0:.1f} s for both banks")
+    check(ab["learned"]["correct"] > ab["patch"]["correct"], f"A/B: learned {ab['learned']['correct']} correct <= "
+          f"patch {ab['patch']['correct']}")
+    check(ab["learned"]["precision"] >= ab["patch"]["precision"] - 0.01, f"A/B: learned precision "
+          f"{ab['learned']['precision']:.4f} < patch {ab['patch']['precision']:.4f} - 0.01")
+    return {"ab": ab, "times": times}
+
+
+def dense_mapper_job(images, cam_rec, truth: dict, label: str, kw: dict):
+    """What ``reconstruct --detector dense`` runs, at ``kw``'s seed, in a
+    worker process: (its outcome on the rig, its split by stage)."""
+    import torch
+
+    from pixtrack_tpu_torch.mapping import default_descriptor
+
+    detector = default_descriptor(device=torch.device("cuda"))
+    rec, wall, split = run_mapper(images, cam_rec, label, detector=detector, match_kw=dict(detector.match_kw), **kw)
+    return dict(rig_outcome(rec, truth), seconds=wall), split
+
+
+def phase_dense_reconstruct(work: Path, views: dict, truth: dict, jobs: list, harris: dict) -> dict:
+    """Phase 40: ``reconstruct --detector dense`` through the CLI over phase
+    30's images (seed 0), with what it runs at seeds 1..DENSE_SEEDS-1 in the
+    mapper workers (``jobs``); the median held to JAX's over seeds 0-7."""
+    import torch
+
+    from pixtrack_tpu_torch.mapping.mesh_render import write_png
+    from pixtrack_tpu_torch.pipelines import assets, cli
+    from pixtrack_tpu_torch.sfm.scene import SceneModel
+
+    ref = json.loads(LEARNED_JAX.read_text())
+    paths = assets.layout(work)
+    paths["mapping"].mkdir(parents=True, exist_ok=True)
+    for iid, img in views.items():
+        write_png(paths["mapping"] / f"view_{iid:04d}.png", img)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cli.main(["reconstruct", "--object_path", str(work), "--detector", "dense"])
+    wall = time.perf_counter() - t0
+    outs = [dict(rig_outcome(SceneModel.load(paths["ref_sfm"]), truth), seconds=wall)]
+    outs += [job.result()[0] for job in jobs]
+    jax = [ref[f"dense{k}"] for k in range(8)]
+    log("[reconstruct --detector dense] global rotation medians at seeds 0-{}: {} deg (JAX at 0-7: {}); registered "
+        "{} (JAX {})".format(DENSE_SEEDS - 1, [round(o["global_deg"], 3) for o in outs],
+                            [round(o["global_deg"], 3) for o in jax], [o["registered"] for o in outs],
+                            [o["registered"] for o in jax]))
+    med, jax_med = outcome_median(outs), outcome_median(jax)
+    report_outcome(f"reconstruct --detector dense, median over seeds 0-{DENSE_SEEDS - 1} (JAX: 0-7)", med, jax_med,
+                   med["seconds"])
+    learned_ka = json.loads((REPO / "assets" / "dense_descriptor_eval.json").read_text())["arc_sfm"]["learned_ka"]
+    log(f"[reconstruct --detector dense] beside it: assets/dense_descriptor_eval.json's arc_sfm.learned_ka "
+        f"{learned_ka['global_rot_med_deg']} deg (its own gate 0.92), and Harris + patches on this rig: phase 30's "
+        f"median {harris['global_deg']:.3f} deg (mapper settings), JAX's reconstruct over seeds 0-6 "
+        f"{harris['jax_cli_deg']:.3f} deg")
+    check(med["registered"] >= jax_med["registered"] - 1, f"reconstruct --detector dense: {med['registered']} registered")
+    check(med["global_deg"] <= jax_med["global_deg"] + DENSE_MARGIN_DEG,
+          f"reconstruct --detector dense: global rotation {med['global_deg']:.3f} deg over JAX's "
+          f"{jax_med['global_deg']:.3f} + {DENSE_MARGIN_DEG}")
+    return {"median": med, "seeds": [o["global_deg"] for o in outs]}
+
+
+def phase_cli_and_learned(device, work: Path, assets, harris_median: float) -> dict:
+    """Phases 38-40, each timed; phase 40's mapper seeds run in the mapper
+    workers while phases 38-39 run here."""
+    ref = jax_reconstruct_reference()
+    arc_dir = work / "arc_dense"
+    arc_dir.mkdir()
+    views, truth, _ = arc_rig(arc_dir)
+    h, w = next(iter(views.values())).shape[:2]
+    with worker_pool(MAPPER_WORKERS) as pool:
+        jobs = [pool.submit(dense_mapper_job, views, cli_camera(h, w), truth, f"reconstruct --detector dense, seed {k}",
+                            dict(max_keypoints=1024, nms_radius=1, seed=k)) for k in range(1, DENSE_SEEDS)]
+        cli_out = timed_phase("phase 38, the command line", phase_command_line, device, work, assets)
+        learned = timed_phase("phase 39, the learned SfM components", phase_learned, device, work, views)
+        harris = {"global_deg": harris_median,
+                  "jax_cli_deg": outcome_median([ref["cli" if k == 0 else f"cli{k}"] for k in range(CLI_SEEDS)])[
+                      "global_deg"]}
+        dense = timed_phase("phase 40, reconstruct --detector dense", phase_dense_reconstruct, arc_dir, views, truth,
+                            jobs, harris)
+    return {"cli": cli_out, "learned": learned, "dense": dense}
+
+
 # -------------------------------------------------------------------- main --
 def main() -> int:
     try:
@@ -3223,12 +3597,19 @@ def main() -> int:
     # phases 17-20: the asset path, the student's renders counted
     asset_launches, student_k1_err, student_staged_err, _ = phase_assets(device)
 
-    # phases 21-33: the SfM model rebuilt through the asset subcommands, refined, tracked; then
-    # reconstructed without poses and tracked
-    nerf_sfm_launches, rebuilt, rebuilt_k1, refined, unposed = phase_rebuild(device)
+    import tempfile
 
-    # phases 34-37: the UNet trained on the card, benchmarked, and tracked with (K1 counted)
-    unet = phase_unet_training(device)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sfm_") as tmp:
+        # phases 21-33: the SfM model rebuilt through the asset subcommands, refined, tracked; then
+        # reconstructed without poses and tracked
+        nerf_sfm_launches, rebuilt, rebuilt_k1, refined, unposed = phase_rebuild(device, Path(tmp))
+
+        # phases 34-37: the UNet trained on the card, benchmarked, and tracked with (K1 counted)
+        unet = phase_unet_training(device)
+
+        # phases 38-40: the rest of the command line over phases 21-24's object folder, the learned SfM
+        # components, and reconstruct --detector dense (no kernel on these paths)
+        later = phase_cli_and_learned(device, Path(tmp), assets, unposed["arc_median"]["global_deg"])
     log("[launches] phase 12 (jittered renders, spp=4): K2 "
         + ", ".join(f"{n} at {w}x{h}" for (w, h), n in jitter_launches.items()) + "; phases 13-15 (K1, K2): "
         + ", ".join(f"{name} {n[fused_mlp.K1]}, {n[fused_mlp.K2]}" for name, n in variant_launches.items()))
@@ -3282,7 +3663,11 @@ def main() -> int:
         + f"; open loop over the unposed model {unposed['open']}/20 (over JAX's {unposed['jax_open']}/20); "
         f"InfoNCE {unet['infonce']['steps_per_s']:.2f} steps/s, basin {unet['basin']['steps_per_s']:.2f} steps/s; "
         f"held-out convergence of 48 " + ", ".join(f"{k} {v}" for k, v in unet["counts"].items())
-        + f"; open loop with the card-trained UNet {unet['open']}/20")
+        + f"; open loop with the card-trained UNet {unet['open']}/20; demo success {later['cli']['demo']:.3f}, the "
+        f"CLI's track against the API {later['cli']['pose_diff']:.1e}; A/B correct of proposed: patch "
+        f"{later['learned']['ab']['patch']['correct']}/{later['learned']['ab']['patch']['proposed']}, learned "
+        f"{later['learned']['ab']['learned']['correct']}/{later['learned']['ab']['learned']['proposed']}; "
+        f"reconstruct --detector dense global median {later['dense']['median']['global_deg']:.3f} deg")
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                             "count": torch.cuda.device_count()}}))
     return 0

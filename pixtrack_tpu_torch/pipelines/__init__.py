@@ -1,1 +1,1 @@
-"""Pipelines: the asset stages and the command line over them."""
+"""Pipelines: the asset stages, the command line over them, and the ``demo`` subcommand's world."""

@@ -1,46 +1,98 @@
-"""The port's command line: ``reconstruct``, the asset subcommands and ``bundle-adjust`` of ``pixtrack_tpu/pipelines/cli.py``.
+"""The port's command line: every subcommand of ``pixtrack_tpu/pipelines/cli.py`` but ``track-batch``.
 
-    python -m pixtrack_tpu_torch.pipelines.cli reconstruct --object_path DIR [--images DIR]
+    python -m pixtrack_tpu_torch.pipelines.cli track --object_path DIR --query DIR [--frames N] [--out_dir out]
+    python -m pixtrack_tpu_torch.pipelines.cli track-ycb --object_path DIR --ycb_root DIR [--query 0000/:]
+    python -m pixtrack_tpu_torch.pipelines.cli visualize --object_path DIR --poses poses.pkl [--video]
+    python -m pixtrack_tpu_torch.pipelines.cli eval --poses poses.pkl
+    python -m pixtrack_tpu_torch.pipelines.cli demo [--frames 6] [--out_dir DIR]
+    python -m pixtrack_tpu_torch.pipelines.cli reconstruct --object_path DIR [--images DIR] [--detector dense]
     python -m pixtrack_tpu_torch.pipelines.cli sfm-from-obj --object_path DIR --obj MESH.obj
     python -m pixtrack_tpu_torch.pipelines.cli train-nerf --object_path DIR
     python -m pixtrack_tpu_torch.pipelines.cli nerf-sfm --object_path DIR
     python -m pixtrack_tpu_torch.pipelines.cli augment --object_path DIR
     python -m pixtrack_tpu_torch.pipelines.cli bundle-adjust --model DIR [--out DIR] [--iters 20]
+    python -m pixtrack_tpu_torch.pipelines.cli extract-frames --video FILE --out_dir DIR [--every 1]
+    python -m pixtrack_tpu_torch.pipelines.cli convert-images SRC_DIR OUT_DIR [--to png] [--ext heic ...]
 
-The same flags and defaults as the JAX package's subcommands, plus
-``--device`` (the CUDA card by default; ``cpu`` runs on the CPU) and
-``nerf-sfm --no_h5`` (skip features.h5 / matches.h5, which need h5py).
-``reconstruct`` runs the Harris detector and mutual-NN + ratio matching:
-the learned detectors and matcher are not ported yet, so ``--detector
-superpoint | dense``, ``--matcher learned``, and ``auto`` when their
-checkpoint is present, stop with a message. The other subcommands are not
-ported yet.
+The same flags, defaults, printed results and files written as the JAX
+package's subcommands, plus ``--device`` (the CUDA card by default; ``cpu``
+runs on the CPU) where JAX has ``--platform``, and ``nerf-sfm --no_h5``
+(skip features.h5 / matches.h5, which need h5py). ``bench`` stops with a
+message: the port has no benchmark yet (``bench.py`` measures the JAX
+package). ``track-batch`` needs the video-batch tracker, not ported yet.
+``reconstruct --detector dense | superpoint`` and ``--matcher learned`` run
+the learned components when their checkpoints are found (``auto`` picks
+them then); asked for without one, they stop with a message.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+from pathlib import Path
+
+import numpy as np
 
 
-def _learned_not_ported(what: str):
-    raise SystemExit(f"{what}: the learned SfM components are not ported to pixtrack_tpu_torch yet; use "
-                     "--detector harris --matcher nn (or the JAX package's CLI)")
+def _load_component(loader, what: str, path):
+    """A learned component from its checkpoint, or a stop naming the file
+    when the file is there but cannot be read as one."""
+    import zipfile
+
+    try:
+        return loader()
+    except (OSError, EOFError, ValueError, KeyError, zipfile.BadZipFile) as e:
+        raise SystemExit(f"cannot read the {what} checkpoint {path}: {e}") from e
+
+
+def _learned_components(args, device):
+    """(detector, matcher, match_kw) of ``reconstruct``'s --detector and
+    --matcher, resolved as the JAX package's CLI resolves them; the
+    classical stack (None, None) when a learned one is neither asked for
+    nor found."""
+    from pixtrack_tpu_torch import mapping
+
+    detector, match_kw = None, dict(min_score=0.5, ratio=0.98)
+    if args.detector == "dense":
+        path = mapping.default_descriptor_weights_path()
+        detector = _load_component(lambda: mapping.default_descriptor(device=device), "dense-descriptor", path)
+        if detector is None:
+            raise SystemExit(f"no dense-descriptor checkpoint ({path}; PIXTRACK_DENSE_DESCRIPTOR_WEIGHTS "
+                             "overrides it); use --detector harris")
+        match_kw = dict(detector.match_kw)  # the operating point it was accepted at
+    elif args.detector != "harris":
+        path = mapping.default_superpoint_weights_path()
+        detector = _load_component(lambda: mapping.default_detector(device=device), "SuperPoint", path)
+        if detector is None and args.detector == "superpoint":
+            raise SystemExit(f"no SuperPoint checkpoint ({path}; PIXTRACK_SUPERPOINT_WEIGHTS overrides it); use "
+                             "--detector harris")
+    matcher = None
+    if args.matcher != "nn":
+        path = mapping.default_matcher_weights_path()
+        matcher = _load_component(lambda: mapping.default_matcher(device=device), "attention-matcher", path)
+        if matcher is None and args.matcher == "learned":
+            raise SystemExit(f"no attention-matcher checkpoint ({path}; PIXTRACK_MATCHER_WEIGHTS overrides it); "
+                             "use --matcher nn")
+        # the matcher is bound to the descriptor space it was trained on
+        # (SuperPoint 256-d, the dense descriptor 128-d, Harris patches 845-d)
+        det_dim = getattr(detector, "desc_dim", 845)
+        if matcher is not None and matcher.desc_dim != det_dim:
+            if args.matcher == "learned":
+                raise SystemExit(f"attention matcher was trained on {matcher.desc_dim}-d descriptors but the "
+                                 f"selected detector produces {det_dim}-d; retrain or change --detector")
+            matcher = None
+    return detector, matcher, match_kw
 
 
 def _cmd_reconstruct(args):
     """Unposed SfM from raw images (the run_reconstruction.py role): the
     camera inferred from the image size (SIMPLE_RADIAL, f = 1.2 max(w, h)),
     ``incremental_sfm`` with the mapper configuration of the JAX package's
-    CLI, the model written to ``ref_sfm``."""
+    CLI, the model written to ``ref_sfm``. The learned components are
+    resolved before anything is written."""
     import shutil
-    from pathlib import Path
-
-    import numpy as np
 
     from pixtrack_tpu_torch._device import resolve
-    from pixtrack_tpu_torch.mapping import (default_descriptor_weights_path, default_matcher_weights_path,
-                                            default_superpoint_weights_path)
     from pixtrack_tpu_torch.mapping.incremental import incremental_sfm
     from pixtrack_tpu_torch.pipelines.assets import layout
     from pixtrack_tpu_torch.sfm import colmap_io
@@ -48,14 +100,7 @@ def _cmd_reconstruct(args):
     from pixtrack_tpu_torch.utils.io import _list_images, _read_rgb
 
     device = resolve(args.device)
-    # `auto` resolves as the JAX package's: a learned component when its
-    # checkpoint ships (none does), else Harris + mutual-NN / ratio
-    if args.detector == "dense":
-        _learned_not_ported(f"--detector dense ({default_descriptor_weights_path()})")
-    if args.detector == "superpoint" or (args.detector == "auto" and default_superpoint_weights_path().exists()):
-        _learned_not_ported(f"--detector {args.detector} ({default_superpoint_weights_path()})")
-    if args.matcher == "learned" or (args.matcher == "auto" and default_matcher_weights_path().exists()):
-        _learned_not_ported(f"--matcher {args.matcher} ({default_matcher_weights_path()})")
+    detector, matcher, match_kw = _learned_components(args, device)
 
     paths = layout(args.object_path)
     mapping = paths["mapping"]
@@ -70,17 +115,180 @@ def _cmd_reconstruct(args):
     cam = infer_camera_from_image((h, w))
     cam_rec = colmap_io.CameraRecord(1, "SIMPLE_RADIAL", w, h, np.array([float(cam.f[0]), w / 2.0, h / 2.0, 0.0]))
     # the mapper configuration of the JAX package's tests and CLI: relaxed
-    # score / ratio, NMS scaled to the image size, featuremetric KA and two
-    # featuremetric BA rounds unless --no-featuremetric
+    # score / ratio (the dense descriptor's own), NMS scaled to the image
+    # size, featuremetric KA and two featuremetric BA rounds unless
+    # --no-featuremetric
     nms = 1 if max(h, w) <= 320 else (2 if max(h, w) <= 768 else 4)
     scene = incremental_sfm(
         images, cam_rec, names=names, verbose=args.verbose, max_keypoints=args.max_keypoints, nms_radius=nms,
-        match_kw=dict(min_score=0.5, ratio=0.98), featuremetric_ka=not args.no_featuremetric,
-        featuremetric_ba_rounds=0 if args.no_featuremetric else 2, device=device,
+        match_kw=match_kw, featuremetric_ka=not args.no_featuremetric,
+        featuremetric_ba_rounds=0 if args.no_featuremetric else 2, matcher=matcher, detector=detector,
+        device=device,
     )
     paths["ref_sfm"].mkdir(parents=True, exist_ok=True)
     scene.save(paths["ref_sfm"])
     print(f"reconstructed {len(scene.images)}/{len(images)} images, {len(scene.points3D)} points -> {paths['ref_sfm']}")
+
+
+def _object_assets(object_path, device, tighten: bool, aabb=None):
+    """(scene, nerf2sfm, testbed) of an object folder: the augmented model,
+    its NeRF transform, and the snapshot baked on ``device`` with the crop
+    box ``aabb``, by default that of the model's points (``tighten`` sweeps
+    the occupied bounds)."""
+    from pixtrack_tpu_torch.geometry.nerf_transform import NerfTransform
+    from pixtrack_tpu_torch.mapping.nerf_dataset import estimate_aabb_from_scene
+    from pixtrack_tpu_torch.nerf.testbed import initialize_testbed
+    from pixtrack_tpu_torch.pipelines.assets import layout
+    from pixtrack_tpu_torch.sfm.scene import SceneModel
+
+    paths = layout(object_path)
+    scene = SceneModel.load(paths["aug_sfm"])
+    tf = NerfTransform.load(paths["nerf2sfm"])
+    aabb = aabb or estimate_aabb_from_scene(scene, tf)
+    testbed = initialize_testbed(paths["snapshot"], aabb=aabb, tighten=tighten, device=device)
+    return scene, tf, testbed
+
+
+def _cmd_track(args):
+    """The flagship tracker over a query folder: ``poses.pkl`` and
+    ``trackers.pkl`` in ``--out_dir``, the tracker's stats printed."""
+    from pixtrack_tpu_torch._device import resolve
+    from pixtrack_tpu_torch.tracking import PixTrackTracker
+    from pixtrack_tpu_torch.utils.config import ObjectConfig, RunConfig, load_config
+    from pixtrack_tpu_torch.utils.io import ImageIterator
+
+    device = resolve(args.device)
+    if args.config:
+        obj_cfg, run_cfg = load_config(args.config)
+    else:
+        obj_cfg, run_cfg = ObjectConfig(), RunConfig()
+    if args.object_path:
+        obj_cfg.object_path = args.object_path
+    # tighten: a one-time occupied-bounds sweep, so that every per-frame
+    # reference render spends its samples on the object
+    scene, tf, testbed = _object_assets(obj_cfg.object_path, device, tighten=True, aabb=obj_cfg.aabb)
+    tracker = PixTrackTracker(scene, run_cfg.make_extractor(device), testbed, tf, run_cfg.tracker_config(obj_cfg),
+                              align_cfg=run_cfg.align_config(), eval_path=args.out_dir)
+    frames = ImageIterator(args.query, max_frames=args.frames)
+    tracker.run(frames, max_frames=args.frames)
+    tracker.save_poses()
+    print(json.dumps(tracker.stats))
+
+
+def _cmd_track_ycb(args):
+    """The YCB-Video evaluation run: the YCB tracker over one video's
+    frames, its summary printed."""
+    from pixtrack_tpu_torch._device import resolve
+    from pixtrack_tpu_torch.tracking.tracker_ycb import YCBTracker, ycb_tracker_config
+    from pixtrack_tpu_torch.utils.config import RunConfig
+    from pixtrack_tpu_torch.utils.io import YCBVideoIterator, parse_frame_range
+
+    device = resolve(args.device)
+    scene, tf, testbed = _object_assets(args.object_path, device, tighten=True)
+    run_cfg = RunConfig()
+    video, frame_range = parse_frame_range(args.query, 10000)
+    it = YCBVideoIterator(args.ycb_root, video, args.object_name, frame_range, device=device)
+    tracker = YCBTracker(scene, run_cfg.make_extractor(device), testbed, tf, ycb_tracker_config(),
+                         align_cfg=run_cfg.align_config(), eval_path=args.out_dir)
+    tracker.run(it)
+    tracker.save_poses()
+    print(json.dumps(tracker.summary()))
+
+
+def _cmd_visualize(args):
+    """Pose overlays of a ``poses.pkl`` (and an mp4 of them with --video)."""
+    from pixtrack_tpu_torch._device import resolve
+    from pixtrack_tpu_torch.viz.overlay import render_pose_overlays, write_video
+
+    scene, tf, testbed = _object_assets(args.object_path, resolve(args.device), tighten=False)
+    written = render_pose_overlays(args.poses, scene, testbed, tf, args.out_dir,
+                                   object_center=np.asarray(scene.xyz).mean(axis=0))
+    if args.video:
+        write_video(written, Path(args.out_dir) / "overlay.mp4", fps=30)
+    print(f"wrote {len(written)} overlays to {args.out_dir}")
+
+
+def _cmd_eval(args):
+    """Trajectory metrics of the entries of a ``poses.pkl`` that carry a ``gt_pose``."""
+    import pickle
+
+    from pixtrack_tpu_torch.eval.metrics import evaluate_trajectory
+
+    with open(args.poses, "rb") as f:
+        poses = pickle.load(f)
+    est, gt = [], []
+    for rec in poses.values():
+        if "gt_pose" not in rec:
+            continue
+        est.append((rec["T_refined"][:3, :3], rec["T_refined"][:3, 3]))
+        gt.append((rec["gt_pose"][:3, :3], rec["gt_pose"][:3, 3]))
+    if not est:
+        print(json.dumps({"error": "poses.pkl has no gt_pose entries"}))
+        return
+    print(json.dumps(evaluate_trajectory(est, gt), indent=2))
+
+
+def _cmd_demo(args):
+    """Synthetic end-to-end run with no data: world -> track -> eval (the
+    world of ``pipelines/demo_world.py``, 128 px, the JAX package's tracker
+    settings)."""
+    from pixtrack_tpu_torch._device import resolve
+    from pixtrack_tpu_torch.align.lm import AlignConfig
+    from pixtrack_tpu_torch.eval.metrics import evaluate_trajectory
+    from pixtrack_tpu_torch.features import FeatureExtractor, HandcraftedExtractor
+    from pixtrack_tpu_torch.pipelines.demo_world import build_world
+    from pixtrack_tpu_torch.tracking import PixTrackTracker, TrackerConfig
+
+    device = resolve(args.device)
+    scene, testbed, nerf2sfm, camera, gt, frames = build_world(res=128, n_frames=args.frames or 6, device=device)
+    tracker = PixTrackTracker(
+        scene, FeatureExtractor(HandcraftedExtractor(device=device), resize=None), testbed, nerf2sfm,
+        TrackerConfig(reference_scale=1.0, cold_multiscale=(1,), covis_threshold=10, cost_threshold_min=0.05,
+                      refine_rounds=2),
+        align_cfg=AlignConfig(num_iters=60, robust_c=1.0), eval_path=args.out_dir)
+    tracker.camera = camera
+    tracker.run(frames)
+    if args.out_dir:
+        tracker.save_poses()
+    est, gtl = [], []
+    for i, (name, _) in enumerate(frames):
+        T = np.asarray(tracker.pose_history[name]["T_refined"])
+        est.append((T[:3, :3], T[:3, 3]))
+        gtl.append((gt[i].R.cpu().numpy(), gt[i].t.cpu().numpy()))
+    print(json.dumps(evaluate_trajectory(est, gtl), indent=2))
+
+
+def _cmd_bench(args):
+    raise SystemExit("bench: the port has no benchmark yet; bench.py measures the JAX package and is not run "
+                     "from here")
+
+
+def _cmd_extract_frames(args):
+    """Video -> frame folder (colmap2ingp's ffmpeg role, through cv2)."""
+    import cv2
+
+    out = Path(args.out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    cap = cv2.VideoCapture(args.video)
+    i = saved = 0
+    while True:
+        ok, frame = cap.read()
+        if not ok:
+            break
+        if i % args.every == 0:
+            cv2.imwrite(str(out / f"frame_{saved:05d}.png"), frame)
+            saved += 1
+        i += 1
+    cap.release()
+    print(f"extracted {saved} frames -> {out}")
+
+
+def _cmd_convert_images(args):
+    """Batch image conversion (Convert_HEIC_to_PNG.ipynb's role)."""
+    from pixtrack_tpu_torch.utils.image_convert import convert_images
+
+    n = convert_images(args.src_dir, args.out_dir, to=args.to, exts=args.ext if args.ext else None)
+    print(f"converted {n} images -> {args.out_dir} ({args.to})")
 
 
 def _cmd_sfm_from_obj(args):
@@ -121,8 +329,6 @@ def _cmd_augment(args):
 def _cmd_bundle_adjust(args):
     """Refine an SfM model (the COLMAP bundle_adjuster role); in place
     unless ``--out`` is given."""
-    from pathlib import Path
-
     from pixtrack_tpu_torch._device import resolve
     from pixtrack_tpu_torch.mapping.bundle import bundle_adjust_scene
     from pixtrack_tpu_torch.sfm.scene import SceneModel
@@ -142,6 +348,41 @@ def main(argv=None):
     p.add_argument("--device", default=None, help="torch device (default: the CUDA card)")
     sub = p.add_subparsers(dest="cmd", required=True)
 
+    s = sub.add_parser("track", help="track a query image folder")
+    s.add_argument("--object_path")
+    s.add_argument("--config")
+    s.add_argument("--query", required=True)
+    s.add_argument("--out_dir", default="out")
+    s.add_argument("--frames", type=int)
+    s.set_defaults(fn=_cmd_track)
+
+    s = sub.add_parser("track-ycb", help="YCB-Video evaluation")
+    s.add_argument("--object_path", required=True)
+    s.add_argument("--ycb_root", required=True)
+    s.add_argument("--object_name", default="003_cracker_box")
+    s.add_argument("--query", default="0000/:")
+    s.add_argument("--out_dir", default="out_ycb")
+    s.set_defaults(fn=_cmd_track_ycb)
+
+    s = sub.add_parser("visualize", help="render pose overlays")
+    s.add_argument("--object_path", required=True)
+    s.add_argument("--poses", required=True)
+    s.add_argument("--out_dir", default="results")
+    s.add_argument("--video", action="store_true")
+    s.set_defaults(fn=_cmd_visualize)
+
+    s = sub.add_parser("eval", help="trajectory metrics from poses.pkl")
+    s.add_argument("--poses", required=True)
+    s.set_defaults(fn=_cmd_eval)
+
+    s = sub.add_parser("demo", help="synthetic end-to-end smoke run")
+    s.add_argument("--frames", type=int, default=6)
+    s.add_argument("--out_dir")
+    s.set_defaults(fn=_cmd_demo)
+
+    s = sub.add_parser("bench", help="the benchmark (the port has none yet: stops with a message)")
+    s.set_defaults(fn=_cmd_bench)
+
     s = sub.add_parser("reconstruct", help="unposed SfM from raw images (run_reconstruction)")
     s.add_argument("--object_path", required=True)
     s.add_argument("--images", help="source image folder (copied to mapping/)")
@@ -149,11 +390,12 @@ def main(argv=None):
     s.add_argument("--no-featuremetric", action="store_true", help="skip featuremetric keypoint adjustment (pixsfm KA)")
     s.add_argument("--max_keypoints", type=int, default=1024, help="detector budget per image (hloc superpoint_max role)")
     s.add_argument("--matcher", choices=("auto", "nn", "learned"), default="auto",
-                   help="pair matcher: mutual-NN + ratio (nn; what auto resolves to with no checkpoint); the "
-                        "learned matcher is not ported yet")
+                   help="pair matcher: trained attention matcher if its checkpoint ships (auto), mutual-NN+ratio "
+                        "(nn), or require the learned one (learned)")
     s.add_argument("--detector", choices=("auto", "harris", "superpoint", "dense"), default="auto",
-                   help="keypoint detector: multi-scale Harris (harris; what auto resolves to with no checkpoint); "
-                        "SuperPoint and the dense descriptor are not ported yet")
+                   help="keypoint detector: trained SuperPoint if its checkpoint ships (auto), multi-scale Harris "
+                        "(harris), require SuperPoint (superpoint), or Harris keypoints + the shipped InfoNCE "
+                        "dense descriptor (dense)")
     s.set_defaults(fn=_cmd_reconstruct)
 
     s = sub.add_parser("sfm-from-obj", help="textured mesh -> posed renders -> SfM")
@@ -191,6 +433,19 @@ def main(argv=None):
     s.add_argument("--out")
     s.add_argument("--iters", type=int, default=20)
     s.set_defaults(fn=_cmd_bundle_adjust)
+
+    s = sub.add_parser("extract-frames", help="video -> frame folder")
+    s.add_argument("--video", required=True)
+    s.add_argument("--out_dir", required=True)
+    s.add_argument("--every", type=int, default=1)
+    s.set_defaults(fn=_cmd_extract_frames)
+
+    s = sub.add_parser("convert-images", help="batch-convert images (HEIC->PNG notebook role)")
+    s.add_argument("src_dir")
+    s.add_argument("out_dir")
+    s.add_argument("--to", default="png", help="target format (default png)")
+    s.add_argument("--ext", nargs="*", default=None, help="restrict source extensions (e.g. --ext heic jpg)")
+    s.set_defaults(fn=_cmd_convert_images)
 
     args = p.parse_args(argv)
     args.fn(args)

@@ -104,18 +104,22 @@ def test_reconstruct_through_both_clis(small_arc, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags,env", [
-    (["--detector", "superpoint"], {}), (["--detector", "dense"], {}), (["--matcher", "learned"], {}),
+    (["--detector", "superpoint"], {}), (["--detector", "dense"], {"PIXTRACK_DENSE_DESCRIPTOR_WEIGHTS": "missing"}),
+    (["--matcher", "learned"], {}),
     ([], {"PIXTRACK_SUPERPOINT_WEIGHTS": "exists"}), ([], {"PIXTRACK_MATCHER_WEIGHTS": "exists"})],
     ids=["superpoint", "dense", "learned", "auto-detector-checkpoint", "auto-matcher-checkpoint"])
 def test_reconstruct_refuses_the_learned_components(tmp_path, monkeypatch, flags, env):
-    """The learned detectors and matcher are not ported: asked for, or
-    picked by ``auto`` because a checkpoint is present, they stop the
-    command before any work; never a silent Harris in their place."""
-    for k in env:
+    """A learned detector or matcher asked for without its checkpoint (no
+    SuperPoint or matcher checkpoint ships; the dense descriptor's is pointed
+    at a missing file), or picked by ``auto`` from a checkpoint that cannot
+    be read, stops the command before any work, naming the file; never a
+    silent Harris in its place."""
+    for k, what in env.items():
         (tmp_path / "ckpt.npz").write_bytes(b"")
-        monkeypatch.setenv(k, str(tmp_path / "ckpt.npz"))
-    with pytest.raises(SystemExit, match="not ported"):
+        monkeypatch.setenv(k, str(tmp_path / ("ckpt.npz" if what == "exists" else "missing.npz")))
+    with pytest.raises(SystemExit, match="checkpoint") as e:
         tcli.main(["--device", CPU, "reconstruct", "--object_path", str(tmp_path / "obj")] + flags)
+    assert ("cannot read" in str(e.value)) == ("exists" in env.values())
     assert not (tmp_path / "obj").exists()
 
 
