@@ -123,7 +123,23 @@ nothing of JAX. Phases:
     JAX's counts on the CPU (``scripts_dev/learned_mapping_jax.json``);
 40. ``reconstruct --detector dense`` over phase 30's images and what it
     runs at seeds 1-7 (in worker processes, while phases 38-39 run), the
-    median held to JAX's over seeds 0-7.
+    median held to JAX's over seeds 0-7;
+41. offline tracking at batch (``parallel/video.py``): B = 1, 2, 4 and 8
+    videos of the mesh world's 20-frame orbit from perturbed first poses,
+    every video's reference rendered in one K1 launch a timestep, each video
+    held to the JAX package's run of it (``scripts_dev/video_batch_jax.npz``);
+    frames/s at each B, the gaps between B = 8 and smaller B, one B = 8
+    step's CUDA-event split, K1 at B * 224 * 224 rays against its plain
+    version; ``track-batch`` through the CLI over phases 21-24's object
+    folder against the same calls through the API;
+42. the dense descriptor trained on the card at its recipe's widths, steps
+    and scenes cut (its banks built in worker processes while phase 41
+    runs): the logged losses, held-out InfoNCE against the untrained net's,
+    steps/s, and phase 39's A/B with the trained net;
+43. the attention matcher trained on the card: the plane-pair trainer and
+    the mesh-pair bank trainer on its host path at seeds 0-2 and on its
+    device-resident path, held-out NLLs against the untrained matcher's,
+    steps/s.
 
 Every phase prints its wall time. Every check raises on failure, so any failed phase exits non-zero. The
 second-to-last line is the kernel table as JSON; the last line is
@@ -1445,13 +1461,14 @@ def train_step_split(device, cap, cfg, steps=4):
     import torch
 
     from pixtrack_tpu_torch.nerf.field import init_field
-    from pixtrack_tpu_torch.nerf.optim import Adam
+    from pixtrack_tpu_torch.nerf.optim import Adam, exponential_decay
     from pixtrack_tpu_torch.nerf.train import batch_indices, make_loss_fn, ray_pool
 
     field = init_field(99, device=device)
     pool = ray_pool(cap.ds, cfg.ray_pool_cap, cfg.background, 0, device)
     loss_fn = make_loss_fn(field, cfg, cap.aabb)
-    opt = Adam(field.parameters(), cfg.lr, cfg.n_steps, cfg.lr_final, b1=0.9, b2=0.99, eps=1e-15)
+    opt = Adam(field.parameters(), lambda k: exponential_decay(cfg.lr, cfg.n_steps, cfg.lr_final, k),
+               b1=0.9, b2=0.99, eps=1e-15)
     gen = torch.Generator(device=device).manual_seed(99)
     spans, bwd, on = {"encoding": [], "density": [], "color": []}, [], [False]
     funcs = {"encoding": field.encoding.forward, "density": field.density_T, "color": field.color_T}
@@ -2895,7 +2912,7 @@ def basin_step_split(device, cfg, steps=3) -> dict:
     model = init_unet(torch.Generator().manual_seed(99), device=device)
     loss_fn = make_basin_loss_fn(model, cfg)
     params = list(model.parameters())
-    opt = Adam(params, cfg.lr, cfg.n_steps, cfg.lr)
+    opt = Adam(params, lambda k: cfg.lr)
     gen = torch.Generator(device=device).manual_seed(99)
     for _ in range(steps):
         events = []
@@ -2944,7 +2961,7 @@ def infonce_step_split(device, cfg, steps=3) -> dict:
 
     model = init_unet(torch.Generator().manual_seed(99), device=device)
     loss_fn = make_loss_fn(model, cfg)
-    opt = Adam(list(model.parameters()), cfg.lr, cfg.n_steps, cfg.lr)
+    opt = Adam(list(model.parameters()), lambda k: cfg.lr)
     gen = torch.Generator(device=device).manual_seed(99)
     for _ in range(steps):
         events = []
@@ -3480,6 +3497,476 @@ def phase_cli_and_learned(device, work: Path, assets, harris_median: float) -> d
     return {"cli": cli_out, "learned": learned, "dense": dense}
 
 
+# ------------------------------------------------------------ phases 41-43 --
+# Phase 41: offline tracking at batch (parallel/video.py), B videos of the
+# mesh world's 20-frame orbit (frames 0-19 of phase 7's world) refined in
+# lockstep, video b started from frame 0's true pose retracted by
+# uniform(-1, 1, 6) * VIDEO_DELTA from np.random.default_rng(b) (the draw of
+# tests/test_parallel_production.py), AlignConfig(num_iters=30), the fused
+# loop's renders (96 coarse samples, no fine pass: K1 renders every video's
+# reference in one launch a timestep) and the shipped UNet in bf16. The JAX
+# package's make_production_video_tracker + track_video_batch over the same
+# videos 0-7 on the CPU (scripts_dev/video_batch_jax.py, which also stores the
+# initial poses used here) drifts: 2-3 successes of 20 a video, rotation
+# medians 12.8-26.1 deg, its costs rising frame after frame (no gate, no
+# relocalization, and all of the model's points observed from one rendered
+# view, the far side's included). Each video at each B is held to JAX's run of
+# the same video in three ways:
+# - while the two trackers are in the same basin, the frames before JAX's
+#   first miss (2-3 a video; success is phase 7's: a finite cost within 110 %
+#   of the video's first-frame cost, at least cost_threshold_min): each
+#   frame's pose within VIDEO_POSE_DEG of JAX's pose of that frame (the
+#   issue's 0.5 deg), its cost within VIDEO_COST_REL of JAX's (ROADMAP's cost
+#   tolerance for the synthetic world) and a success in the port too;
+# - successes over the 20 frames >= JAX's less VIDEO_OK_SLACK, as PERF.md
+#   §2's rule for the variants;
+# - the rotation median over the 20 frames, a coarse drift bound: once
+#   drifting, a video's median moves by degrees with the last bits of its
+#   start. Measured: the port at B = 8 on the card (H100 80GB HBM3, 700 W)
+#   from starts moved by k * 1e-6 along x (phase 7's perturbation), k = 0,
+#   1, 2: video 1's median 18.56 / 17.55 / 26.21 deg, video 7's 17.51 /
+#   20.45 / 17.64, every success count unchanged; JAX on the CPU at k = 0, 1
+#   (scripts_dev/video_batch_jax.py 20 1): video 1's 26.09 / 18.61, video
+#   7's 17.59 / 20.35. So each video's median is held to JAX's +
+#   VIDEO_SPREAD_DEG, the larger of the two packages' spreads (max - min
+#   over the starts, the largest over the videos: the port's 8.66 deg
+#   against JAX's 7.48; phases 31-32 and 40 take their margins the same
+#   way), and the median over the eight videos of their medians at B = 8,
+#   which those starts move by 0.18 deg (the port) and 0.24 (JAX) at most,
+#   to JAX's + VIDEO_MED_SLACK_DEG. Not every video drifts that freely:
+#   video 0's median moves 0.007 deg in JAX between k = 0 and 1, and the
+#   port's sits 0.56-0.60 deg over JAX's in every run, the card's and the
+#   CPU's (at its frame 8 JAX lands in a minimum of lower cost, 0.1297
+#   against 0.1308). The phase runs video 0 from k = 0, 1, 2 as one batch of
+#   three and prints the port's own spread there, and prints video 0's
+#   per-frame gap to JAX at B = 8, where the two tracks part.
+VIDEO_JAX = REPO / "scripts_dev" / "video_batch_jax.npz"
+VIDEO_BS, VIDEO_FRAMES, VIDEO_ITERS = (1, 2, 4, 8), 20, 30
+VIDEO_DELTA = np.array([0.01] * 3 + [0.015] * 3)
+VIDEO_OK_SLACK, VIDEO_MED_SLACK_DEG, VIDEO_COST_MIN = 1, 0.5, 0.05
+VIDEO_POSE_DEG, VIDEO_COST_REL = 0.5, 2e-3
+VIDEO_SPREAD_DEG = 26.214 - 17.554  # the port's video 1 over k = 0, 1, 2 (JAX's video 1: 26.09 - 18.61)
+# track-batch through the CLI over phases 21-24's object folder: 3 copies of
+# phase 38's TRACK_FRAMES query frames, held to the same calls through the API
+TRACK_BATCH_VIDEOS = 3
+# Phase 42: the dense descriptor's recipe (scripts_dev/train_dense_descriptor_run.py:
+# DescBankConfig's widths, 192 px, 192 keypoints, 10 views; DescTrainConfig's,
+# 8 pairs a step, lr 3e-4) cut to DESC_SCENES training scenes (four banks of
+# DESC_SCENES / 4 built side by side in the workers, seeds 500-503; the recipe's
+# 120 scenes) and DESC_STEPS steps (its 4000); held-out InfoNCE on
+# DESC_HOLDOUT_PAIRS pairs of a bank of two scenes at seed 900 (the recipe's
+# val bank is seeds 9xx), no jitter. Then phase 39's deployment A/B with the
+# trained net in place of the shipped one.
+DESC_SCENES, DESC_STEPS, DESC_LOG_EVERY, DESC_HOLDOUT_PAIRS = 16, 600, 100, 32
+# Phase 43: the matcher. The plane-pair trainer at MatcherTrainConfig's widths
+# (160 px, 96 + 32 keypoints, batch 4) cut to PLANE_STEPS steps, held to the
+# JAX test's gate (tests/test_attention_matcher.py:93-107); the bank trainer
+# (scripts_dev/train_matcher_run.py's batch 8, lr 2e-4) on a mesh-pair bank of
+# MBANK_SCENES scenes (build_mesh_pair_bank's widths, one scene a worker,
+# seeds 1..MBANK_SCENES; the recipe's 40 scenes), BANK_STEPS steps on the
+# host path at seeds 0-2 and on the device-resident path at seed 0 (chunks of
+# BANK_CHUNK steps; all but the host path's seed 0 in the workers, their
+# steps/s those of runs that share the card); the device path's held-out NLL must
+# lie within the host path's spread (max - min over the seeds) of their
+# median. Measured (H100 80GB HBM3, 700 W): at 300 steps host 9.2382,
+# 8.9969, 9.2643, device 9.2381; at 150, host 9.2534, 9.2566, 9.2741, device
+# 9.2531; untrained 9.59-10.48.
+PLANE_STEPS, PLANE_LOG_EVERY = 100, 10
+MBANK_SCENES, BANK_STEPS, BANK_LOG_EVERY, BANK_CHUNK = 4, 150, 25, 10
+
+
+def same_basin_gaps(out: dict, ref, B: int) -> list:
+    """Per video of a run at B, over its frames before JAX's first miss: the
+    largest rotation (deg) and relative cost gap to JAX's frame, and whether
+    the port counts every one of those frames a success."""
+    ok = video_success(out["cost"])
+    gaps = []
+    for b in range(B):
+        miss = np.flatnonzero(~ref["success"][:, b])
+        n = int(miss[0]) if miss.size else VIDEO_FRAMES
+        gaps.append({"frames": n,
+                     "rot": max(rot_err_deg(out["R"][k, b], ref["R"][k, b]) for k in range(n)),
+                     "cost": float(np.max(np.abs(out["cost"][:n, b] - ref["cost"][:n, b]) / ref["cost"][:n, b])),
+                     "ok": bool(ok[:n, b].all())})
+    return gaps
+
+
+def video_success(cost: np.ndarray) -> np.ndarray:
+    """Phase 7's success of each frame of (T, B) costs: finite, within 110 %
+    of its video's first-frame cost or at most cost_threshold_min."""
+    thresh = np.maximum(1.1 * cost[0], VIDEO_COST_MIN)
+    return np.isfinite(cost) & (cost <= thresh[None])
+
+
+def video_outcome(cost: np.ndarray, rot: np.ndarray):
+    """(successes, rotation median) per video of (T, B) costs and rotation errors."""
+    return video_success(cost).sum(0), np.median(rot, axis=0)
+
+
+class StageEvents:
+    """CUDA events around each named stage of a VideoStep (``stage_timer``)."""
+
+    def __init__(self):
+        self.events = []
+
+    @contextlib.contextmanager
+    def __call__(self, name):
+        import torch
+
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        yield
+        b.record()
+        self.events.append((name, a, b))
+
+    def split(self) -> dict:
+        import torch
+
+        torch.cuda.synchronize()
+        out = {}
+        for name, a, b in self.events:
+            out[name] = out.get(name, 0.0) + a.elapsed_time(b)
+        return out
+
+
+def video_k1_rays(run, R, t):
+    """K1's inputs for the batched step's one reference launch at poses (B,)."""
+    import torch
+
+    from pixtrack_tpu_torch.geometry import Pose
+    from pixtrack_tpu_torch.nerf.render import march_rays, rays_from_camera
+
+    rays = [rays_from_camera(run.c2w_nerf_of(Pose(R[b], t[b])), *run._ref_f, *run._ref_c, run.rW, run.rH)
+            for b in range(R.shape[0])]
+    return march_rays(torch.cat([o for o, _ in rays]), torch.cat([d for _, d in rays]), run.aabb, None)
+
+
+def phase_video_batch(device, assets) -> dict:
+    """Phase 41: the batched tracker at B = 1, 2, 4, 8 against JAX's run of
+    the same videos, its throughput and the B = 8 step's split, and K1 at the
+    batched shape against its plain version."""
+    import torch
+
+    from pixtrack_tpu_torch.align.lm import AlignConfig
+    from pixtrack_tpu_torch.nerf import fused_mlp
+    from pixtrack_tpu_torch.parallel import make_production_video_tracker, track_video_batch
+
+    ref = np.load(VIDEO_JAX)
+    jax_ok, jax_med = ref["successes"], ref["rot_median_deg"]
+    tb = assets.testbed
+    saved = tb.n_coarse, tb.n_fine
+    tb.n_coarse, tb.n_fine = 96, 0
+    run = make_production_video_tracker(tb, assets.n2s, assets.extractor, assets.scene, assets.camera,
+                                        reference_scale=0.5, align_cfg=AlignConfig(num_iters=VIDEO_ITERS))
+    video = torch.stack([torch.as_tensor(img, device=device) for _, img in assets.frames[:VIDEO_FRAMES]]).float() / 255.0
+    gt_R = [T.R.cpu().numpy() for T in assets.gt[:VIDEO_FRAMES]]
+    R0 = torch.as_tensor(ref["R0"], device=device)
+    t0 = torch.as_tensor(ref["t0"], device=device)
+    check(np.allclose(ref["R0"], np.stack([
+        assets.gt[0].retract(torch.as_tensor(np.random.default_rng(b).uniform(-1, 1, 6) * VIDEO_DELTA,
+                                             dtype=torch.float32)).R.cpu().numpy() for b in range(8)]), atol=1e-5),
+          "video batch: the stored initial poses are not the draws of phase 41")
+
+    outs, fps, k1_by_b, misses = {}, {}, {}, []
+    fused_mlp.reset_launch_counts()
+    for B in VIDEO_BS:
+        videos = video[None].expand(B, *video.shape)
+        k1_before = fused_mlp.launch_count(fused_mlp.K1)
+        run(R0[:B], t0[:B], videos[:, 0])  # warm-up step
+        torch.cuda.synchronize()
+        t_start = time.perf_counter()
+        out = track_video_batch(run, R0[:B], t0[:B], videos)
+        wall = time.perf_counter() - t_start
+        k1_by_b[B] = fused_mlp.launch_count(fused_mlp.K1) - k1_before
+        fps[B] = B * VIDEO_FRAMES / wall
+        rot = np.asarray([[rot_err_deg(out["R"][k, b], gt_R[k]) for b in range(B)] for k in range(VIDEO_FRAMES)])
+        ok, med = video_outcome(out["cost"], rot)
+        outs[B] = dict(out, rot=rot, ok=ok, med=med)
+        log(f"[video batch] B={B}: {fps[B]:.2f} frames/s ({B * VIDEO_FRAMES} frames in {wall:.2f} s after one "
+            f"warm-up step); successes {ok.tolist()} (JAX {jax_ok[:B].tolist()}), rotation medians "
+            f"{[round(float(m), 2) for m in med]} deg (JAX {[round(float(m), 2) for m in jax_med[:B]]}); LM "
+            f"iterations a frame, mean {float(out['num_iters'].mean()):.1f} (JAX {float(ref['num_iters'][:, :B].mean()):.1f}); "
+            f"K1 launches {k1_by_b[B]} over {VIDEO_FRAMES + 1} steps")
+        check(k1_by_b[B] == VIDEO_FRAMES + 1, f"video batch B={B}: K1 launched {k1_by_b[B]} times")
+        check(np.isfinite(out["cost"]).all(), f"video batch B={B}: non-finite cost")
+        misses += [f"B={B}, video {b}: {ok[b]} successes at {med[b]:.2f} deg against JAX's {jax_ok[b]} at "
+                   f"{jax_med[b]:.2f}" for b in range(B)
+                   if not (ok[b] >= jax_ok[b] - VIDEO_OK_SLACK and med[b] <= jax_med[b] + VIDEO_SPREAD_DEG)]
+        basin = same_basin_gaps(out, ref, B)
+        log(f"[video batch] B={B}: the frames before JAX's first miss ({[g['frames'] for g in basin]} a video), "
+            f"against JAX's: pose gaps {[round(g['rot'], 3) for g in basin]} deg (<= {VIDEO_POSE_DEG}), cost gaps "
+            f"{[round(g['cost'], 6) for g in basin]} relative (<= {VIDEO_COST_REL:g}), each a success in the port "
+            f"{[g['ok'] for g in basin]}")
+        misses += [f"B={B}, video {b}, frames 0-{g['frames'] - 1}: {g['rot']:.3f} deg and {g['cost']:.1e} of the cost "
+                   f"from JAX's, successes {g['ok']}" for b, g in enumerate(basin)
+                   if not (g["rot"] <= VIDEO_POSE_DEG and g["cost"] <= VIDEO_COST_REL and g["ok"])]
+    check(not misses, "video batch: " + "; ".join(misses))
+    all_med, jax_all_med = float(np.median(outs[8]["med"])), float(np.median(jax_med))
+    log(f"[video batch] B=8: the median over the videos of their rotation medians {all_med:.3f} deg (JAX "
+        f"{jax_all_med:.3f}); each video's median held to JAX's + {VIDEO_SPREAD_DEG:.3f} deg, this one to JAX's + "
+        f"{VIDEO_MED_SLACK_DEG}")
+    check(all_med <= jax_all_med + VIDEO_MED_SLACK_DEG, f"video batch: the median over the videos {all_med:.3f} deg")
+    gap0 = [rot_err_deg(outs[8]["R"][k, 0], ref["R"][k, 0]) for k in range(VIDEO_FRAMES)]
+    log(f"[video batch] video 0 at B=8, each frame's rotation against JAX's (deg): {[round(g, 2) for g in gap0]}; "
+        f"costs {[round(float(c), 4) for c in outs[8]['cost'][:, 0]]} (JAX {[round(float(c), 4) for c in ref['cost'][:, 0]]})")
+    # video 0 from starts moved by k * 1e-6 along x, k = 0, 1, 2, as one batch of three
+    t_k = t0[:1].repeat(3, 1)
+    t_k[:, 0] += torch.arange(3, device=device) * 1e-6
+    pert = track_video_batch(run, R0[:1].expand(3, 3, 3), t_k, video[None].expand(3, *video.shape))
+    rot_k = np.asarray([[rot_err_deg(pert["R"][k, j], gt_R[k]) for j in range(3)] for k in range(VIDEO_FRAMES)])
+    ok_k, med_k = video_outcome(pert["cost"], rot_k)
+    log(f"[video batch] video 0 from starts moved by k * 1e-6 along x, k = 0, 1, 2 (one batch of three): rotation "
+        f"medians {[round(float(m), 3) for m in med_k]} deg, spread {float(med_k.max() - med_k.min()):.3f}, "
+        f"successes {ok_k.tolist()}; JAX's at k = 0, 1 {float(jax_med[0]):.3f} / {float(ref['rot_median_deg_k1'][0]):.3f}")
+    launches = fused_mlp.launch_count(fused_mlp.K1)
+    gaps = {}
+    for B in VIDEO_BS[:-1]:
+        rot = [[rot_err_deg(outs[B]["R"][k, b], outs[8]["R"][k, b]) for b in range(B)] for k in range(VIDEO_FRAMES)]
+        cost = np.abs(outs[B]["cost"] - outs[8]["cost"][:, :B]) / outs[8]["cost"][:, :B]
+        gaps[B] = (max(rot[0]), float(cost[0].max()), float(np.max(rot)), float(cost.max()))
+    log("[video batch] batch invariance, the same videos at B against B=8 (rotation by the arccos of the trace, "
+        "~0.03 deg of f32 noise), frame 0 / the largest over the 20 frames: "
+        + "; ".join(f"B={B}: {r0:.3f} / {r:.3f} deg, cost {c0:.2e} / {c:.2e} relative"
+                    for B, (r0, c0, r, c) in gaps.items()))
+
+    # one batched step's split at B = 8, CUDA events
+    ev = StageEvents()
+    run.stage_timer = ev
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        _, _, _, iters = run(R0, t0, video[None].expand(8, *video.shape)[:, 1])
+    split = ev.split()
+    run.stage_timer = None
+    log(f"[video batch] one step at B=8, CUDA events (ms): " + ", ".join(f"{k} {v:.2f}" for k, v in split.items())
+        + f", total {sum(split.values()):.2f}; LM iterations {iters.tolist()} (the pyramid's, per video)")
+
+    # K1 at the batched shape, against its plain version (phase 3's rules); these launches are not counted
+    k1 = phase_k1({f"video_batch_8x{run.rW}x{run.rH}": (run.field, video_k1_rays(run, R0, t0), run.rcfg.n_coarse)},
+                  device)[0]
+    tb.n_coarse, tb.n_fine = saved
+    return {"fps": fps, "split": split, "k1": k1, "launches": launches, "gaps": gaps}
+
+
+def track_batch_job(work: str) -> dict:
+    """Phase 41's ``track-batch`` through the CLI over phases 21-24's object
+    folder (phase 38's query PNGs, TRACK_BATCH_VIDEOS copies), then the same
+    calls through the API, in one worker process: the summary, the largest
+    gap between their poses, the API's poses."""
+    import pickle
+
+    import torch
+
+    from pixtrack_tpu_torch.parallel import make_production_video_tracker, track_video_batch
+    from pixtrack_tpu_torch.pipelines import cli
+    from pixtrack_tpu_torch.tracking.refiner import infer_camera_from_image
+    from pixtrack_tpu_torch.utils.config import ObjectConfig, RunConfig
+    from pixtrack_tpu_torch.utils.io import ImageIterator
+
+    device, work = torch.device("cuda"), Path(work)
+    query = work / "queries"
+    out_dir = work / "track_batch_out"
+    t0 = time.perf_counter()
+    summary = json.loads(capture_cli(["track-batch", "--object_path", str(work), "--query",
+                                      *[str(query)] * TRACK_BATCH_VIDEOS, "--out_dir", str(out_dir)]
+                                     ).strip().splitlines()[-1])
+    scene, tf, testbed = cli._object_assets(work, device, tighten=False)
+    run_cfg = RunConfig()
+    vids = [list(ImageIterator(query)) for _ in range(TRACK_BATCH_VIDEOS)]
+    camera = infer_camera_from_image(vids[0][0][1], device=device)
+    api_run = make_production_video_tracker(testbed, tf, run_cfg.make_extractor(device), scene, camera,
+                                            reference_scale=run_cfg.reference_scale, align_cfg=run_cfg.align_config())
+    batch = np.stack([np.stack([np.asarray(img, np.float32) / 255.0 for _, img in v]) for v in vids])
+    T0 = scene.pose_w2c(scene.name2id[ObjectConfig().upright_ref_img or scene.names[0]])
+    api = track_video_batch(api_run, np.tile(T0.R.numpy(), (TRACK_BATCH_VIDEOS, 1, 1)),
+                            np.tile(T0.t.numpy(), (TRACK_BATCH_VIDEOS, 1)), batch)
+    diff = 0.0
+    for b, v in enumerate(vids):
+        with open(out_dir / f"poses_{b:02d}.pkl", "rb") as f:
+            poses = pickle.load(f)
+        for k, (name, _) in enumerate(v):
+            T = poses[str(name).split("/")[-1]]["T_refined"]
+            diff = max(diff, float(np.abs(T[:3, :3] - api["R"][k, b]).max()), float(np.abs(T[:3, 3] - api["t"][k, b]).max()))
+    return {"summary": summary, "diff": diff, "R": api["R"], "seconds": time.perf_counter() - t0}
+
+
+def phase_track_batch(job, assets) -> dict:
+    """Phase 41's ``track-batch`` (``track_batch_job``, run in a worker while
+    phases 42-43 run here), held to the API to the bit."""
+    out = job.result()
+    summary, diff = out["summary"], out["diff"]
+    rot = [rot_err_deg(out["R"][k, 0], assets.gt[k].R.cpu().numpy()) for k in range(out["R"].shape[0])]
+    log(f"[track-batch] {summary}; poses against the same calls through the API: max |dT| {diff:.1e}; video 0's "
+        f"rotation errors against the orbit (deg): {[round(r, 2) for r in rot]}; {out['seconds']:.1f} s in the worker "
+        f"(the CLI and the API, each loading and baking the snapshot)")
+    check(summary["n_videos"] == TRACK_BATCH_VIDEOS and summary["mesh"] == {"dp": 1, "tp": 1}, f"track-batch: {summary}")
+    check(diff == 0.0, f"track-batch: the CLI's poses are {diff:.1e} from the API's")
+    return {"summary": summary, "diff": diff}
+
+
+def merge_banks(banks: list) -> dict:
+    """Descriptor banks side by side: the pairs' view indices offset."""
+    out, offset, pairs = {}, 0, []
+    for b in banks:
+        pairs.append(b["pairs"] + offset)
+        offset += b["images"].shape[0]
+    for k in banks[0]:
+        out[k] = np.concatenate(pairs) if k == "pairs" else np.concatenate([b[k] for b in banks])
+    return out
+
+
+def descriptor_bank_job(workdir: str, n_scenes: int, seed: int) -> dict:
+    from pixtrack_tpu_torch.mapping.dense_descriptor import DescBankConfig, build_descriptor_bank
+
+    return build_descriptor_bank(workdir, DescBankConfig(n_scenes=n_scenes, seed=seed), device="cpu")
+
+
+def matcher_bank_job(workdir: str, seed: int) -> dict:
+    from pixtrack_tpu_torch.mapping.train_matcher import build_mesh_pair_bank
+
+    return build_mesh_pair_bank(workdir, n_scenes=1, seed=seed, device="cpu")
+
+
+def phase_descriptor_training(device, work: Path, banks, heldout, ab_patch: dict) -> dict:
+    """Phase 42: the dense descriptor trained on the card at its recipe's
+    widths, cut; held-out InfoNCE against the untrained net; phase 39's A/B
+    with the trained net."""
+    import torch
+
+    from pixtrack_tpu_torch.mapping import dense_descriptor as dd
+    from pixtrack_tpu_torch.mapping.detector import detect_and_describe
+    from pixtrack_tpu_torch.mapping.train_matcher import build_mesh_pair_bank
+
+    bank = merge_banks([b.result() for b in banks])
+    held = heldout.result()
+    cfg = dd.DescTrainConfig(n_steps=DESC_STEPS, log_every=DESC_LOG_EVERY)
+    net = dd.init_descriptor(torch.Generator().manual_seed(cfg.seed), device=device)
+    hb = dd.bank_tensors(held, device)
+    idx = torch.arange(min(DESC_HOLDOUT_PAIRS, held["pairs"].shape[0]), device=device)
+
+    def heldout_loss():
+        with torch.no_grad():
+            return float(sum(dd.infonce_loss(net, hb, idx[s:s + 8], cfg) * len(idx[s:s + 8])
+                             for s in range(0, len(idx), 8)) / len(idx))
+
+    before = heldout_loss()
+    net, info = dd.train_descriptor(bank, cfg, net=net, device=device)
+    after = heldout_loss()
+    hist = [v for _, v in info["history"]]
+    sps = cfg.n_steps / info["seconds"]
+    log(f"[descriptor training] bank {bank['images'].shape[0]} views of {DESC_SCENES} scenes, {bank['pairs'].shape[0]} "
+        f"pairs; {cfg.n_steps} steps at {sps:.2f} steps/s; logged InfoNCE {[round(v, 4) for v in hist]}; held-out "
+        f"InfoNCE on {len(idx)} pairs of the seed-900 bank {before:.4f} untrained, {after:.4f} trained")
+    check(all(np.isfinite(hist)), "descriptor training: a non-finite logged loss")
+    check(hist[-1] < hist[0], f"descriptor training: the last logged loss {hist[-1]:.4f} >= the first {hist[0]:.4f}")
+    check(after < before, f"descriptor training: held-out InfoNCE {after:.4f} >= the untrained net's {before:.4f}")
+
+    def learned_detector(image, max_keypoints=256, **kw):
+        kp_, sc_, _ = detect_and_describe(image, max_keypoints=max_keypoints, device=device, **kw)
+        return kp_, sc_, dd.describe_at_dense(net, image, kp_.cpu().numpy())
+
+    t0 = time.perf_counter()
+    ab_bank = build_mesh_pair_bank(work / "ab" / "cut", detector=learned_detector, device=device, **AB)
+    ab = bank_counts(ab_bank, *AB_MATCH["learned"])
+    log(f"[descriptor A/B] the net trained here at {AB_MATCH['learned']}: correct {ab['correct']} of {ab['proposed']} "
+        f"proposed (precision {ab['precision']:.4f}); the patch descriptor (phase 39) {ab_patch['correct']} of "
+        f"{ab_patch['proposed']} ({ab_patch['precision']:.4f}); {time.perf_counter() - t0:.1f} s")
+    check(ab["correct"] > ab_patch["correct"], f"descriptor A/B: {ab['correct']} correct <= patch {ab_patch['correct']}")
+    check(ab["precision"] >= ab_patch["precision"] - 0.01,
+          f"descriptor A/B: precision {ab['precision']:.4f} < patch {ab_patch['precision']:.4f} - 0.01")
+    return {"steps_per_s": sps, "heldout": (before, after), "ab": ab}
+
+
+def bank_trainer_run(bank: dict, seed: int, chunk: int, device) -> dict:
+    """One run of the bank trainer at the recipe's batch and rate, seed
+    ``seed``, on the host path (``chunk`` 0) or the device-resident one; its
+    held-out NLL beside the untrained matcher's on the same split."""
+    import dataclasses
+
+    import torch
+
+    from pixtrack_tpu_torch.mapping import train_matcher as tm
+    from pixtrack_tpu_torch.mapping.attention_matcher import MatcherConfig, init_matcher
+
+    mcfg = MatcherConfig(desc_dim=bank["desc0"].shape[-1])
+    c = tm.MatcherTrainConfig(n_steps=BANK_STEPS, batch=8, lr=2e-4, log_every=BANK_LOG_EVERY, seed=seed)
+    _, untrained = tm.train_matcher_on_bank(bank, dataclasses.replace(c, n_steps=0), mcfg,
+                                            model=init_matcher(mcfg, torch.Generator().manual_seed(seed), device),
+                                            device=device)
+    model = init_matcher(mcfg, torch.Generator().manual_seed(seed), device)
+    _, info = tm.train_matcher_on_bank(bank, c, mcfg, model=model, scan_chunk=chunk, device=device)
+    return {"nll": info["holdout_nll"], "untrained": untrained["holdout_nll"], "sps": c.n_steps / info["seconds"],
+            "hist": [v for _, v in info["history"]], "pairs": int(bank["gt"].shape[0])}
+
+
+def bank_trainer_job(bank_path: str, seed: int, chunk: int) -> dict:
+    """``bank_trainer_run`` in a worker process, the bank read from disk."""
+    import torch
+
+    with np.load(bank_path) as z:
+        bank = {k: z[k] for k in z.files}
+    return bank_trainer_run(bank, seed, chunk, torch.device("cuda"))
+
+
+def phase_matcher_training(device, mbanks, pool, work: Path) -> dict:
+    """Phase 43: the plane-pair trainer and both bank-trainer paths on the
+    card; the host path's seeds 1-2 and the device-resident path in the
+    workers while the host path's seed 0 runs here."""
+    from pixtrack_tpu_torch.mapping import train_matcher as tm
+
+    cfg = tm.MatcherTrainConfig(n_steps=PLANE_STEPS, log_every=PLANE_LOG_EVERY)
+    _, info = tm.train_matcher(cfg, device=device)
+    hist = [v for _, v in info["history"]]
+    plane_sps = cfg.n_steps / info["seconds"]
+    log(f"[matcher, plane pairs] {cfg.n_steps} steps at {plane_sps:.2f} steps/s (batch {cfg.batch}, {cfg.size} px, "
+        f"{cfg.n_match} + {cfg.n_distract} keypoints); logged loss {[round(v, 4) for v in hist]}")
+    check(all(np.isfinite(hist)), "matcher, plane pairs: a non-finite logged loss")
+    check(min(hist[1:]) < hist[0], f"matcher, plane pairs: no logged loss after the first below it ({hist})")
+
+    parts = [b.result() for b in mbanks]
+    bank = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+    bank_path = work / "mbank.npz"
+    np.savez(bank_path, **bank)
+    jobs = {("host", s): pool.submit(bank_trainer_job, str(bank_path), s, 0) for s in (1, 2)}
+    jobs[("device", 0)] = pool.submit(bank_trainer_job, str(bank_path), 0, BANK_CHUNK)
+    runs = {("host", 0): bank_trainer_run(bank, 0, 0, device)}
+    runs.update({k: j.result() for k, j in jobs.items()})
+    for (label, seed), r in sorted(runs.items()):
+        where = " (here)" if (label, seed) == ("host", 0) else " (in a worker)"
+        log(f"[matcher, bank, {label} path, seed {seed}] {r['pairs']} pairs of {MBANK_SCENES} scenes; {BANK_STEPS} "
+            f"steps at {r['sps']:.2f} steps/s{where}; logged loss "
+            f"{[round(v, 4) for v in r['hist']]}; held-out NLL {r['nll']:.4f} (untrained {r['untrained']:.4f})")
+        check(np.isfinite(r["nll"]) and r["nll"] < r["untrained"],
+              f"matcher, bank, {label} path, seed {seed}: held-out NLL {r['nll']:.4f} against {r['untrained']:.4f}")
+    host = [runs[("host", s)]["nll"] for s in range(3)]
+    spread, dev_nll = max(host) - min(host), runs[("device", 0)]["nll"]
+    log(f"[matcher, bank] device-resident path's held-out NLL {dev_nll:.4f}; the host path's over seeds 0-2 "
+        f"{[round(v, 4) for v in host]}, median {float(np.median(host)):.4f}, spread {spread:.4f}")
+    check(abs(dev_nll - float(np.median(host))) <= spread,
+          f"matcher, bank: the device path's held-out NLL {dev_nll:.4f} is not within the host path's spread")
+    return {"plane_sps": plane_sps, "host_sps": runs[("host", 0)]["sps"], "device_sps": runs[("device", 0)]["sps"],
+            "nll": {"host": host, "device": dev_nll}}
+
+
+def phase_batch_and_trainers(device, work: Path, assets, ab_patch: dict) -> dict:
+    """Phases 41-43, each timed. The trainers' banks are built in the workers
+    (on their CPU) while phase 41 runs here; ``track-batch`` and three of
+    the bank trainer's four runs run in the workers while phases 42-43 run
+    here (the steps/s printed are then those of runs that share the card and
+    the host)."""
+    with worker_pool(MAPPER_WORKERS) as pool:
+        per = DESC_SCENES // 4
+        desc = [pool.submit(descriptor_bank_job, str(work / "descbank" / str(k)), per, 500 + k) for k in range(4)]
+        held = pool.submit(descriptor_bank_job, str(work / "descbank" / "held"), 2, 900)
+        mbanks = [pool.submit(matcher_bank_job, str(work / "mbank" / str(s)), s) for s in range(1, MBANK_SCENES + 1)]
+        video = timed_phase("phase 41, the video batch", phase_video_batch, device, assets)
+        track_batch = pool.submit(track_batch_job, str(work))
+        descriptor = timed_phase("phase 42, the dense descriptor trained", phase_descriptor_training, device, work, desc,
+                                 held, ab_patch)
+        matcher = timed_phase("phase 43, the matcher trained", phase_matcher_training, device, mbanks, pool, work)
+        video["track_batch"] = timed_phase("phase 41, track-batch", phase_track_batch, track_batch, assets)
+    return {"video": video, "descriptor": descriptor, "matcher": matcher}
+
+
 # -------------------------------------------------------------------- main --
 def main() -> int:
     try:
@@ -3610,6 +4097,10 @@ def main() -> int:
         # phases 38-40: the rest of the command line over phases 21-24's object folder, the learned SfM
         # components, and reconstruct --detector dense (no kernel on these paths)
         later = phase_cli_and_learned(device, Path(tmp), assets, unposed["arc_median"]["global_deg"])
+
+        # phases 41-43: the video batch over the mesh world (K1 counted) and track-batch over phases 21-24's
+        # object folder; the dense descriptor and the matcher trained on the card
+        batch = phase_batch_and_trainers(device, Path(tmp), assets, later["learned"]["ab"]["patch"])
     log("[launches] phase 12 (jittered renders, spp=4): K2 "
         + ", ".join(f"{n} at {w}x{h}" for (w, h), n in jitter_launches.items()) + "; phases 13-15 (K1, K2): "
         + ", ".join(f"{name} {n[fused_mlp.K1]}, {n[fused_mlp.K2]}" for name, n in variant_launches.items()))
@@ -3621,7 +4112,7 @@ def main() -> int:
             "route": "cuda",
             "source": "pixtrack_tpu_torch/csrc/march_render.cu",
             "replaces": "pixtrack_tpu/nerf/fused_mlp.py:300",
-            "launches": fused_launches[fused_mlp.K1] + unet["k1"],
+            "launches": fused_launches[fused_mlp.K1] + unet["k1"] + batch["video"]["launches"],
             "launches_by_path": {"fused frames": fused_launches[fused_mlp.K1],
                                  "open loop with the card-trained UNet (phase 37)": unet["k1"],
                                  **{name: n[fused_mlp.K1] for name, n in variant_launches.items()},
@@ -3629,13 +4120,16 @@ def main() -> int:
                                  "nerf-sfm (phase 23)": nerf_sfm_launches[fused_mlp.K1],
                                  "fused frames over the card-built model (phase 25)": rebuilt_k1,
                                  "open loop over the refined model (phase 29)": refined["k1"],
-                                 "open loops over the unposed models (phase 33)": unposed["k1"]},
-            "max_abs_err": max(max(r["err"] for r in k1), student_k1_err),
+                                 "open loops over the unposed models (phase 33)": unposed["k1"],
+                                 "video batch (phase 41)": batch["video"]["launches"]},
+            "max_abs_err": max(max(r["err"] for r in k1), student_k1_err, batch["video"]["k1"]["err"]),
             "ms": main_shape["ms"],
             "plain_ms": main_shape["plain_ms"],
             "bound_ms": main_shape["bound_ms"],
             "bound_by": main_shape["bound_by"],
             "library_ms": None,
+            "by_shape": {r["shape"]: {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+                         for r in k1 + [batch["video"]["k1"]]},
         },
         {
             "name": "fused_distilled_eval",
@@ -3667,7 +4161,12 @@ def main() -> int:
         f"CLI's track against the API {later['cli']['pose_diff']:.1e}; A/B correct of proposed: patch "
         f"{later['learned']['ab']['patch']['correct']}/{later['learned']['ab']['patch']['proposed']}, learned "
         f"{later['learned']['ab']['learned']['correct']}/{later['learned']['ab']['learned']['proposed']}; "
-        f"reconstruct --detector dense global median {later['dense']['median']['global_deg']:.3f} deg")
+        f"reconstruct --detector dense global median {later['dense']['median']['global_deg']:.3f} deg; video batch "
+        f"frames/s " + ", ".join(f"B={B} {v:.2f}" for B, v in batch["video"]["fps"].items())
+        + f"; K1 at {batch['video']['k1']['shape']} {batch['video']['k1']['ms']:.3f} ms (bound "
+        f"{batch['video']['k1']['bound_ms']:.3f}); descriptor training {batch['descriptor']['steps_per_s']:.2f} "
+        f"steps/s, matcher plane pairs {batch['matcher']['plane_sps']:.2f}, bank host {batch['matcher']['host_sps']:.2f}, "
+        f"bank device-resident {batch['matcher']['device_sps']:.2f} steps/s")
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                             "count": torch.cuda.device_count()}}))
     return 0

@@ -10,6 +10,16 @@ once ``done`` is set (or the budget is spent) an iteration changes nothing
 and ``num_iters`` stops counting, so the result and the count match the JAX
 loop exactly. The host reads ``done`` only every ``_CHECK_EVERY``
 iterations, which keeps the loop free of a device sync per iteration.
+
+``align_level`` and ``align_pyramid`` also take a batch of problems, as the
+JAX video tracker vmaps them: poses (B,), levels whose tensors lead with B
+(``p3d`` may stay (N, 3), shared), and one camera or B of them. The carry
+is then per problem, (B,) ``done``, ``lam``, iteration count and best cost:
+under ``vmap`` a ``while_loop`` runs while any element is active and freezes
+each element's carry once that element is done, and here the masked update
+does the same. One body serves both: with no batch axis the ``...`` of its
+products is empty, and an unbatched call gives, to the bit, what it gave
+before the batch axis came.
 """
 
 from __future__ import annotations
@@ -88,16 +98,17 @@ def _pixel_pose_jacobian(p_cam, camera: Camera, scale):
     """d p2d_feature / d (w, v) for the left se(3) update: (..., N, 2, 6)."""
     eye = torch.eye(3, dtype=p_cam.dtype, device=p_cam.device).expand(*p_cam.shape[:-1], 3, 3)
     J_pcam = torch.cat([-so3_hat(p_cam), eye], dim=-1)
-    J_proj = camera.project_jacobian(p_cam) * scale[:, None]
+    J_proj = camera.project_jacobian(p_cam) * scale[..., None]
     return J_proj @ J_pcam
 
 
 def _mean_cost(e2, w_static, valid, cfg: AlignConfig):
-    """Static-weighted Cauchy cost per valid point; inf with no valid point."""
+    """Static-weighted Cauchy cost per valid point, per problem over the
+    leading axes; inf with no valid point."""
     c2 = cfg.robust_c**2
     rho = c2 * torch.log1p(e2 / c2)
-    n = valid.sum()
-    return torch.where(n > 0, (w_static * rho).sum() / n.clamp_min(1), torch.inf)
+    n = valid.sum(-1)
+    return torch.where(n > 0, (w_static * rho).sum(-1) / n.clamp_min(1), torch.inf)
 
 
 def _residuals_and_jacobian(T: Pose, data: LevelData, camera: Camera, cfg: AlignConfig,
@@ -137,12 +148,26 @@ def _residuals_and_jacobian(T: Pose, data: LevelData, camera: Camera, cfg: Align
     return r, J, w, valid, (e2, w_static)
 
 
+def _point_axis(camera: Camera) -> Camera:
+    """A batch of cameras ((B, 2) fields) as (B, 1, 2): broadcast over points."""
+    if camera.f.ndim < 2:
+        return camera
+    return Camera(size=camera.size[:, None], f=camera.f[:, None], c=camera.c[:, None], k=camera.k[:, None])
+
+
 def _evaluate(T: Pose, data: LevelData, camera: Camera, cfg: AlignConfig, compute_jac: bool):
     """Cost and valid count, plus (g, H) of the normal equations with the
-    channel axis contracted first (G = grad^T grad is 2x2 per point)."""
+    channel axis contracted first (G = grad^T grad is 2x2 per point).
+
+    For B problems (poses (B,), level tensors leading with B, the scale (2,)
+    or (B, 2), one camera or B) each output leads with B: cost (B,), g (B,
+    6), H (B, 6, 6), the valid counts (B,)."""
+    batch = _is_batch(T, data)
+    camera = _point_axis(camera)
+    scale = data.scale[:, None] if data.scale.ndim == 2 else data.scale
     p_cam = T.transform(data.p3d)
     p2d_img, visible = camera.project(p_cam)
-    p2d = p2d_img * data.scale
+    p2d = p2d_img * scale
     f_q, grad, in_map = interpolate_features(data.fmap, p2d, compute_grad=compute_jac)
     r = f_q - data.f_ref
     valid = data.mask & visible & in_map
@@ -153,29 +178,56 @@ def _evaluate(T: Pose, data: LevelData, camera: Camera, cfg: AlignConfig, comput
     w_static, w = _point_weights(e2, cq, valid, data, cfg)
     cost = _mean_cost(e2, w_static, valid, cfg)
     if not compute_jac:
-        return cost, valid.sum()
-    J_pix = _pixel_pose_jacobian(p_cam, camera, data.scale)
-    G = torch.einsum("nca,ncb->nab", grad, grad)
-    gr = torch.einsum("nca,nc->na", grad, r)
-    M = torch.einsum("nab,nbk->nak", G * w[:, None, None], J_pix)
-    H = torch.einsum("nak,nal->kl", J_pix, M)
-    g = torch.einsum("nak,na->k", J_pix, gr * w[:, None])
-    return cost, g, H, valid.sum()
+        return cost, valid.sum(-1)
+    J_pix = _pixel_pose_jacobian(p_cam, camera, scale)
+    G = torch.einsum("...nca,...ncb->...nab", grad, grad)
+    gr = torch.einsum("...nca,...nc->...na", grad, r)
+    M = torch.einsum("...nab,...nbk->...nak", G * w[..., None, None], J_pix)
+    H = torch.einsum("...nak,...nal->...kl", J_pix, M)
+    g = _gradient(J_pix, gr * w[..., None]) if batch else torch.einsum("nak,na->k", J_pix, gr * w[..., None])
+    return cost, g, H, valid.sum(-1)
+
+
+def _gradient(J_pix, v):
+    """g = sum_n J^T v of B problems, one product per problem (and one
+    composition per problem in ``_retract``): the batched products sum in
+    another order than the unbatched ones, and the stopping rules would then
+    part a batch's problems from the same problems alone on last bits."""
+    return torch.stack([torch.einsum("nak,na->k", J_pix[k], v[k]) for k in range(v.shape[0])])
+
+
+def _is_batch(T: Pose, data: LevelData) -> bool:
+    return T.t.ndim > 1 or data.fmap.ndim > 3
+
+
+def _retract(T: Pose, delta: torch.Tensor) -> Pose:
+    """``T.retract(delta)``, composed per problem in a batch."""
+    if delta.ndim == 1:
+        return T.retract(delta)
+    E = Pose.exp(delta)
+    parts = [Pose(E.R[k], E.t[k]) @ Pose(T.R[k], T.t[k]) for k in range(delta.shape[0])]
+    return Pose(torch.stack([p.R for p in parts]), torch.stack([p.t for p in parts]))
 
 
 def residual_cost(T: Pose, data: LevelData, camera: Camera, cfg: AlignConfig):
     """(cost, num_valid) at pose T: the accept/reject scalar and the
-    tracker's adaptive threshold."""
+    tracker's adaptive threshold; (B,) each for a batch."""
     return _evaluate(T, data, camera, cfg, compute_jac=False)
 
 
 def _solve(H, g, lam, cfg: AlignConfig):
-    """Damped 6x6 solve by Cholesky; a failed factorisation or a non-finite
-    entry gives a zero step (JAX's solve returns NaN there)."""
-    H_damped = H + torch.diag(lam * torch.diagonal(H) + cfg.eps)
+    """Damped 6x6 solve by Cholesky, of one system or of a batch (B, 6, 6);
+    a failed factorisation or a non-finite entry gives a zero step (JAX's
+    solve returns NaN there)."""
+    H_damped = H + torch.diag_embed(lam[..., None] * torch.diagonal(H, dim1=-2, dim2=-1) + cfg.eps)
     L, info = torch.linalg.cholesky_ex(H_damped)
-    delta = -torch.cholesky_solve(g[:, None], L)[:, 0]
-    return torch.where((info == 0) & torch.isfinite(delta), delta, 0.0)
+    delta = -torch.cholesky_solve(g[..., None], L)[..., 0]
+    return torch.where((info == 0)[..., None] & torch.isfinite(delta), delta, 0.0)
+
+
+def _sel(cond, a, b):
+    """``torch.where`` with a per-problem ``cond`` (B,) over a's trailing axes."""
+    return torch.where(cond.reshape(*cond.shape, *[1] * (a.ndim - cond.ndim)), a, b)
 
 
 def align_level(T_init: Pose, data: LevelData, camera: Camera, cfg: AlignConfig) -> AlignState:
@@ -186,18 +238,19 @@ def align_level(T_init: Pose, data: LevelData, camera: Camera, cfg: AlignConfig)
     (H, g) with more damping. Stops on a small gradient, a small accepted
     step, cost stagnation or the iteration budget."""
     dev = data.p3d.device
-    lam = torch.tensor(cfg.lambda_init, dtype=torch.float32, device=dev)
     c_best, g_best, H_best, nvalid0 = _evaluate(T_init, data, camera, cfg, True)
+    batch = tuple(c_best.shape)  # () for one problem
+    lam = torch.full(batch, cfg.lambda_init, dtype=torch.float32, device=dev)
     nv_floor = cfg.min_valid_frac * nvalid0.float()
     T_best = T_init
-    T_cand = T_init.retract(_solve(H_best, g_best, lam, cfg))
-    i = torch.tensor(1, device=dev)
-    done = torch.tensor(False, device=dev)
-    gnorm = torch.linalg.norm(g_best)
-    stall = torch.tensor(0, device=dev)
+    T_cand = _retract(T_init, _solve(H_best, g_best, lam, cfg))
+    i = torch.ones(batch, dtype=torch.int64, device=dev)
+    done = torch.zeros(batch, dtype=torch.bool, device=dev)
+    gnorm = torch.linalg.norm(g_best, dim=-1)
+    stall = torch.zeros(batch, dtype=torch.int64, device=dev)
 
     for it in range(max(cfg.num_iters - 1, 0)):
-        if it % _CHECK_EVERY == 0 and not bool((i < cfg.num_iters) & ~done):
+        if it % _CHECK_EVERY == 0 and not bool(((i < cfg.num_iters) & ~done).any()):
             break
         active = (i < cfg.num_iters) & ~done
         c_cand, g_cand, H_cand, nv_cand = _evaluate(T_cand, data, camera, cfg, True)
@@ -205,14 +258,14 @@ def align_level(T_init: Pose, data: LevelData, camera: Camera, cfg: AlignConfig)
         improved = c_cand < c_best * (1.0 - cfg.cost_rel_tol)
         T_b = T_cand.where(accept, T_best)
         c_b = torch.where(accept, c_cand, c_best)
-        g_b = torch.where(accept, g_cand, g_best)
-        H_b = torch.where(accept, H_cand, H_best)
+        g_b = _sel(accept, g_cand, g_best)
+        H_b = _sel(accept, H_cand, H_best)
         lam_next = torch.where(accept, lam * cfg.lambda_down, lam * cfg.lambda_up).clamp(
             cfg.lambda_min, cfg.lambda_max
         )
         delta = _solve(H_b, g_b, lam_next, cfg)
-        T_next = T_b.retract(delta)
-        gnorm_next = torch.linalg.norm(g_b)
+        T_next = _retract(T_b, delta)
+        gnorm_next = torch.linalg.norm(g_b, dim=-1)
         dR, dt = Pose.exp(delta).magnitude()
         small_grad = gnorm_next < cfg.grad_stop_criteria
         small_step = accept & (dt < cfg.dt_stop_criteria) & (dR < cfg.dR_stop_criteria)
@@ -222,8 +275,8 @@ def align_level(T_init: Pose, data: LevelData, camera: Camera, cfg: AlignConfig)
 
         T_best = T_b.where(active, T_best)
         c_best = torch.where(active, c_b, c_best)
-        g_best = torch.where(active, g_b, g_best)
-        H_best = torch.where(active, H_b, H_best)
+        g_best = _sel(active, g_b, g_best)
+        H_best = _sel(active, H_b, H_best)
         T_cand = T_next.where(active, T_cand)
         lam = torch.where(active, lam_next, lam)
         gnorm = torch.where(active, gnorm_next, gnorm)
@@ -290,7 +343,8 @@ def align_pyramid(
 ) -> Tuple[AlignState, Tuple[AlignState, ...]]:
     """Coarse-to-fine over ``levels`` (given fine -> coarse). With level
     arbitration each finer level starts from whichever of the coarser
-    result and the frame's init has the lower cost under its own residual."""
+    result and the frame's init has the lower cost under its own residual,
+    per problem in a batch."""
     states = []
     T = T_init
     for li, data in enumerate(reversed(levels)):

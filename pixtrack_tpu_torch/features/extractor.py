@@ -56,29 +56,38 @@ class FeatureExtractor:
         return H, W, 1.0
 
     def _run(self, img: torch.Tensor, out_h: int, out_w: int):
+        """Levels and confidences of one (H, W, 3) image, or of a batch (B,
+        H, W, 3) in one call of the model."""
         img = img.float()
         if img.ndim == 2:
             img = img[..., None].expand(*img.shape, 3)
-        if tuple(img.shape[:2]) != (out_h, out_w):
+        batched = img.ndim == 4
+        if tuple(img.shape[-3:-1]) != (out_h, out_w):
+            # one image keeps its (1, C, H, W) view: the resize's result, and so
+            # the model's, depends on the input's strides in the last bits
             img = F.interpolate(
-                img.permute(2, 0, 1)[None], size=(out_h, out_w), mode="bilinear",
-                antialias=True, align_corners=False,
-            )[0].permute(1, 2, 0)
+                img.permute(0, 3, 1, 2) if batched else img.permute(2, 0, 1)[None], size=(out_h, out_w),
+                mode="bilinear", antialias=True, align_corners=False,
+            )
+            img = img.permute(0, 2, 3, 1) if batched else img[0].permute(1, 2, 0)
+        x = img if batched else img[None]
         with torch.no_grad():
             if isinstance(self.model, torch.nn.Module):
-                pred = self.model(img[None])
-                feats = tuple(f[0] for f in pred["feature_maps"])
-                confs = tuple(c[0] for c in pred["confidences"])
+                pred = self.model(x)
+                feats, confs = tuple(pred["feature_maps"]), tuple(pred["confidences"])
+                if not batched:
+                    feats, confs = tuple(f[0] for f in feats), tuple(c[0] for c in confs)
             else:
-                pyr = self.model(img)
+                pyr = self.model(x if batched else x[0])
                 feats, confs = pyr.levels, pyr.confidences
         if self.normalize:
             feats = tuple(normalize_features(f) for f in feats)
         return feats, confs
 
     def traced(self, image: torch.Tensor, image_scale: int = 1) -> FeaturePyramid:
-        """Pyramid of a float (H, W, 3) image in [0, 1] already on the device."""
-        H, W = int(image.shape[0]), int(image.shape[1])
+        """Pyramid of a float (H, W, 3) image in [0, 1] already on the device,
+        or of a batch (B, H, W, 3): (B, ...) levels, the scales shared."""
+        H, W = (int(v) for v in (image.shape[1:3] if image.ndim == 4 else image.shape[:2]))
         out_h, out_w, _ = self._target_hw(H, W, image_scale)
         feats, confs = self._run(image, out_h, out_w)
         ry, rx = out_h / H, out_w / W

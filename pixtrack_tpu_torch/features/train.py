@@ -239,7 +239,7 @@ def train_features(
     device = resolve(device)
     model = model if model is not None else init_unet(torch.Generator().manual_seed(seed), device=device)
     loss_fn = make_loss_fn(model, cfg)
-    opt = Adam(list(model.parameters()), cfg.lr, cfg.n_steps, cfg.lr)
+    opt = Adam(list(model.parameters()), lambda k: cfg.lr)
     gen = generator or torch.Generator(device=device).manual_seed(seed + 1)
     draws = iter(draws) if draws is not None else None
     history = []

@@ -50,7 +50,7 @@ from pixtrack_tpu_torch.features.train import (
 )
 from pixtrack_tpu_torch.features.unet import UNetExtractor, init_unet, normalize_features
 from pixtrack_tpu_torch.geometry import Camera, Pose
-from pixtrack_tpu_torch.nerf.optim import Adam
+from pixtrack_tpu_torch.nerf.optim import Adam, clip_by_global_norm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -377,18 +377,6 @@ def make_basin_loss_fn(model: UNetExtractor, cfg: BasinTrainConfig):
     return loss_fn
 
 
-def clip_by_global_norm(params, max_norm: float) -> torch.Tensor:
-    """optax.clip_by_global_norm on the parameters' ``.grad`` in place: each
-    scaled as (g / norm) * max_norm when the global norm >= max_norm; no
-    host sync. Returns the norm before clipping."""
-    grads = [p.grad for p in params]
-    norm = torch.sqrt(torch.stack([(g * g).sum() for g in grads]).sum())
-    clip = norm >= max_norm
-    torch._foreach_div_(grads, torch.where(clip, norm, 1.0))
-    torch._foreach_mul_(grads, torch.where(clip, max_norm, 1.0))
-    return norm
-
-
 def _tree_map(fn, *trees):
     if isinstance(trees[0], dict):
         return {k: _tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
@@ -454,7 +442,7 @@ def train_basin_features(
     model = model if model is not None else init_unet(torch.Generator().manual_seed(seed), device=device)
     loss_fn = make_basin_loss_fn(model, cfg)
     params = list(model.parameters())
-    opt = Adam(params, cfg.lr, cfg.n_steps, cfg.lr)
+    opt = Adam(params, lambda k: cfg.lr)
     gen = generator or torch.Generator(device=device).manual_seed(seed + 1)
     draws = iter(draws) if draws is not None else None
     history, grad_norms = [], []

@@ -94,7 +94,7 @@ class Camera:
 
     def K(self) -> torch.Tensor:
         """3x3 intrinsic matrix (index-centred convention)."""
-        fx, fy = self.f[..., 0], self.f[..., 1]
+        fx, fy = (self.f[0], self.f[1]) if self.f.ndim == 1 else (self.f[..., 0], self.f[..., 1])
         cx, cy = self.c[..., 0], self.c[..., 1]
         z, o = torch.zeros_like(fx), torch.ones_like(fx)
         return torch.stack([torch.stack([fx, z, cx], -1), torch.stack([z, fy, cy], -1),
@@ -112,7 +112,8 @@ class Camera:
         z_safe = torch.where(z.abs() < eps, torch.full_like(z, eps), z)
         uv = p_cam[..., 0:2] / z_safe
         r2 = (uv * uv).sum(-1, keepdim=True)
-        uv_d = uv * (1.0 + r2 * (self.k[0] + r2 * self.k[1]))
+        k1, k2 = (self.k[0], self.k[1]) if self.k.ndim == 1 else (self.k[..., 0:1], self.k[..., 1:2])
+        uv_d = uv * (1.0 + r2 * (k1 + r2 * k2))
         p2d = uv_d * self.f + self.c
         return p2d, in_front & self.in_image(p2d)
 
@@ -127,13 +128,13 @@ class Camera:
         iz = 1.0 / z_safe
         u, v = x * iz, y * iz
         r2 = u * u + v * v
-        k1, k2 = self.k[0], self.k[1]
+        k1, k2 = (self.k[0], self.k[1]) if self.k.ndim == 1 else (self.k[..., 0], self.k[..., 1])
         g = 1.0 + r2 * (k1 + r2 * k2)
         dg_dr2 = k1 + 2.0 * k2 * r2
         duu = g + 2.0 * dg_dr2 * u * u
         duv = 2.0 * dg_dr2 * u * v
         dvv = g + 2.0 * dg_dr2 * v * v
-        fx, fy = self.f[0], self.f[1]
+        fx, fy = (self.f[0], self.f[1]) if self.f.ndim == 1 else (self.f[..., 0], self.f[..., 1])
         row0 = torch.stack([fx * duu * iz, fx * duv * iz, fx * (-(duu * u + duv * v) * iz)], -1)
         row1 = torch.stack([fy * duv * iz, fy * dvv * iz, fy * (-(duv * u + dvv * v) * iz)], -1)
         return torch.stack([row0, row1], dim=-2)

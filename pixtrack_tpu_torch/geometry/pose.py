@@ -105,5 +105,7 @@ class Pose:
         return rot.geodesic_distance(self.R, other.R)
 
     def where(self, cond: torch.Tensor, other: "Pose") -> "Pose":
-        """``self`` where ``cond`` (a bool scalar tensor) holds, else ``other``."""
-        return Pose(R=torch.where(cond, self.R, other.R), t=torch.where(cond, self.t, other.t))
+        """``self`` where ``cond`` holds, else ``other``: a bool scalar tensor,
+        or one per pose over the leading batch axes (B,)."""
+        c = cond.reshape(*cond.shape, *[1] * (self.t.ndim - cond.ndim))
+        return Pose(R=torch.where(c[..., None], self.R, other.R), t=torch.where(c, self.t, other.t))

@@ -24,7 +24,7 @@ import torch.nn.functional as F
 
 from pixtrack_tpu_torch._device import resolve
 from pixtrack_tpu_torch.nerf.field import sh_encoding_deg4_T
-from pixtrack_tpu_torch.nerf.optim import Adam
+from pixtrack_tpu_torch.nerf.optim import Adam, exponential_decay
 
 
 @dataclasses.dataclass
@@ -252,7 +252,7 @@ def distill(teacher, aabb, occ: Optional[np.ndarray] = None, config: DistillConf
 
     st = _trainable(student or init_distilled(seed, octaves=config.octaves, width=config.width,
                                               depth=config.depth, device=device))
-    opt = Adam(st.tensors(), config.lr, config.steps, config.lr_final)
+    opt = Adam(st.tensors(), lambda k: exponential_decay(config.lr, config.steps, config.lr_final, k))
 
     def loss_fn(xb, db, ls_b, rgb_b, wb, ob):
         h = st.encode_T(xb)
@@ -305,7 +305,7 @@ def finetune_photometric(student: DistilledField, dataset, aabb, steps: int = 30
     rcfg = RenderConfig(n_coarse=n_coarse, n_fine=0, perturb=True, fused=False, min_transmittance=1e-4,
                         chunk=batch_rays)
     st = _trainable(student)
-    opt = Adam(st.tensors(), lr, steps, lr_final)
+    opt = Adam(st.tensors(), lambda k: exponential_decay(lr, steps, lr_final, k))
     generator = torch.Generator(device=device).manual_seed(seed)
     for i in range(steps):
         idx = batch_indices(generator, n_rays, batch_rays)

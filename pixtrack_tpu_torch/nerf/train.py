@@ -21,7 +21,7 @@ import torch
 
 from pixtrack_tpu_torch._device import resolve
 from pixtrack_tpu_torch.nerf.field import NGPField, init_field
-from pixtrack_tpu_torch.nerf.optim import Adam
+from pixtrack_tpu_torch.nerf.optim import Adam, exponential_decay
 from pixtrack_tpu_torch.nerf.render import RenderConfig, render_rays
 
 
@@ -91,7 +91,8 @@ def train(dataset, aabb, cfg: TrainConfig = TrainConfig(), field: Optional[NGPFi
         field = init_field(seed + 1, device=resolve(device))
     origins, dirs, rgbs = ray_pool(dataset, cfg.ray_pool_cap, cfg.background, seed, field.device)
     n_rays = origins.shape[0]
-    optimizer = Adam(field.parameters(), cfg.lr, cfg.n_steps, cfg.lr_final, b1=0.9, b2=0.99, eps=1e-15)
+    optimizer = Adam(field.parameters(), lambda k: exponential_decay(cfg.lr, cfg.n_steps, cfg.lr_final, k),
+                     b1=0.9, b2=0.99, eps=1e-15)
     loss_fn = make_loss_fn(field, cfg, aabb)
     generator = torch.Generator(device=field.device).manual_seed(seed)
 

@@ -1,6 +1,7 @@
-"""The port's command line: every subcommand of ``pixtrack_tpu/pipelines/cli.py`` but ``track-batch``.
+"""The port's command line: every subcommand of ``pixtrack_tpu/pipelines/cli.py``.
 
     python -m pixtrack_tpu_torch.pipelines.cli track --object_path DIR --query DIR [--frames N] [--out_dir out]
+    python -m pixtrack_tpu_torch.pipelines.cli track-batch --object_path DIR --query DIR [DIR ...] [--frames N]
     python -m pixtrack_tpu_torch.pipelines.cli track-ycb --object_path DIR --ycb_root DIR [--query 0000/:]
     python -m pixtrack_tpu_torch.pipelines.cli visualize --object_path DIR --poses poses.pkl [--video]
     python -m pixtrack_tpu_torch.pipelines.cli eval --poses poses.pkl
@@ -19,7 +20,8 @@ package's subcommands, plus ``--device`` (the CUDA card by default; ``cpu``
 runs on the CPU) where JAX has ``--platform``, and ``nerf-sfm --no_h5``
 (skip features.h5 / matches.h5, which need h5py). ``bench`` stops with a
 message: the port has no benchmark yet (``bench.py`` measures the JAX
-package). ``track-batch`` needs the video-batch tracker, not ported yet.
+package). ``track-batch`` refines every video's frame k in one batched
+step on the one card; ``--devices`` above 1 stops with a message.
 ``reconstruct --detector dense | superpoint`` and ``--matcher learned`` run
 the learned components when their checkpoints are found (``auto`` picks
 them then); asked for without one, they stop with a message.
@@ -173,6 +175,73 @@ def _cmd_track(args):
     tracker.run(frames, max_frames=args.frames)
     tracker.save_poses()
     print(json.dumps(tracker.stats))
+
+
+def _cmd_track_batch(args):
+    """Several videos at once (``parallel/video.py``): each timestep refines
+    every video's current frame in one batched step; each video's pose chain
+    is its own. The cold start is the upright reference pose for every
+    video. Writes ``poses_{b:02d}.pkl`` per video and prints the JAX
+    package's summary keys."""
+    import pickle
+
+    from pixtrack_tpu_torch._device import resolve
+    from pixtrack_tpu_torch.geometry import Pose
+    from pixtrack_tpu_torch.parallel.video import make_production_video_tracker, track_video_batch
+    from pixtrack_tpu_torch.tracking.refiner import infer_camera_from_image
+    from pixtrack_tpu_torch.utils.config import ObjectConfig, RunConfig, load_config
+    from pixtrack_tpu_torch.utils.io import ImageIterator
+
+    if args.devices > 1:
+        raise SystemExit("track-batch: the port runs on one card; its batch is the tensors' leading axis "
+                         f"(--devices {args.devices} asked for a mesh)")
+    device = resolve(args.device)
+    if args.config:
+        obj_cfg, run_cfg = load_config(args.config)
+    else:
+        obj_cfg, run_cfg = ObjectConfig(), RunConfig()
+    if args.object_path:
+        obj_cfg.object_path = args.object_path
+    scene, tf, testbed = _object_assets(obj_cfg.object_path, device, tighten=False, aabb=obj_cfg.aabb)
+
+    videos = [list(ImageIterator(q, max_frames=args.frames)) for q in args.query]
+    if not videos or not all(videos):
+        raise SystemExit("track-batch: every --query folder needs frames")
+    camera = infer_camera_from_image(videos[0][0][1], device=device)
+    run = make_production_video_tracker(testbed, tf, run_cfg.make_extractor(device), scene, camera,
+                                        reference_scale=run_cfg.reference_scale, align_cfg=run_cfg.align_config())
+
+    # lockstep batch: a shorter video is padded by repeating its last frame
+    T_len = max(len(v) for v in videos)
+    batch = np.stack([np.stack([np.asarray(v[min(k, len(v) - 1)][1], np.float32) / 255.0 for k in range(T_len)])
+                      for v in videos])
+    ref_name = obj_cfg.upright_ref_img or scene.names[0]
+    T0 = scene.pose_w2c(scene.name2id[ref_name])
+    B = len(videos)
+    R0 = np.tile(T0.R.numpy().astype(np.float32), (B, 1, 1))
+    t0 = np.tile(T0.t.numpy().astype(np.float32), (B, 1))
+    out = track_video_batch(run, R0, t0, batch)
+
+    out_dir = Path(args.out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for b, vid in enumerate(videos):
+        poses = {}
+        for k, (name, _) in enumerate(vid):
+            T = Pose.from_Rt(out["R"][k, b], out["t"][k, b])
+            poses[str(name).split("/")[-1]] = {
+                "success": bool(np.isfinite(out["cost"][k, b])),
+                "T_refined": T.to_4x4().numpy(),
+                "cost": float(out["cost"][k, b]),
+                "query_path": str(name),
+            }
+        with open(out_dir / f"poses_{b:02d}.pkl", "wb") as f:
+            pickle.dump(poses, f)
+    print(json.dumps({
+        "n_videos": B,
+        "n_frames": int(T_len),
+        "mesh": {"dp": 1, "tp": 1},
+        "mean_cost_final": float(np.mean(out["cost"][-1])),
+    }))
 
 
 def _cmd_track_ycb(args):
@@ -355,6 +424,15 @@ def main(argv=None):
     s.add_argument("--out_dir", default="out")
     s.add_argument("--frames", type=int)
     s.set_defaults(fn=_cmd_track)
+
+    s = sub.add_parser("track-batch", help="track several videos at once, batched on the one card")
+    s.add_argument("--object_path", required=True)
+    s.add_argument("--query", nargs="+", required=True, help="one frames dir per video")
+    s.add_argument("--config")
+    s.add_argument("--out_dir", default="out_batch")
+    s.add_argument("--frames", type=int, default=None)
+    s.add_argument("--devices", type=int, default=0, help="one device only: more than 1 raises")
+    s.set_defaults(fn=_cmd_track_batch)
 
     s = sub.add_parser("track-ycb", help="YCB-Video evaluation")
     s.add_argument("--object_path", required=True)

@@ -12,9 +12,10 @@ import torch.nn.functional as F
 
 
 def _pool(mask: torch.Tensor, size: int, pad_value: float, sign: float) -> torch.Tensor:
+    """Max (sign 1) or min (sign -1) over a size x size window of (..., H, W)."""
     lo = (size - 1) // 2
-    x = F.pad(mask[None, None], (lo, size - 1 - lo, lo, size - 1 - lo), value=pad_value)
-    return sign * F.max_pool2d(sign * x, size, stride=1)[0, 0]
+    x = F.pad(mask.reshape(-1, 1, *mask.shape[-2:]), (lo, size - 1 - lo, lo, size - 1 - lo), value=pad_value)
+    return (sign * F.max_pool2d(sign * x, size, stride=1)).reshape(mask.shape)
 
 
 def erode(mask: torch.Tensor, size: int = 5, iterations: int = 1) -> torch.Tensor:
@@ -44,18 +45,24 @@ def splat_object_mask(
 ) -> torch.Tensor:
     """Object mask from the SfM cloud: project the points, scatter-max them
     into a ``down``-scaled buffer, close (dilate then erode), dilate, and
-    upsample by repetition. Returns float32 {0, 1} of ``shape``."""
+    upsample by repetition. Returns float32 {0, 1} of ``shape``; for a batch
+    of poses (B,) one mask per pose, (B, H, W), each scattered into its own
+    block of one flat buffer."""
     H, W = shape
     h, w = H // down, W // down
     p2d, visible = camera.world2image(T_w2c, p3d)
     ij = torch.round(p2d / down).to(torch.int64)
-    inb = visible & (ij[:, 0] >= 0) & (ij[:, 0] < w) & (ij[:, 1] >= 0) & (ij[:, 1] < h)
-    ij = torch.where(inb[:, None], ij, 0)
-    flat = torch.zeros(h * w, dtype=torch.float32, device=p3d.device)
-    flat = flat.scatter_reduce(0, ij[:, 1] * w + ij[:, 0], inb.float(), reduce="amax")
-    m = flat.reshape(h, w)
+    inb = visible & (ij[..., 0] >= 0) & (ij[..., 0] < w) & (ij[..., 1] >= 0) & (ij[..., 1] < h)
+    ij = torch.where(inb[..., None], ij, 0)
+    lead = tuple(inb.shape[:-1])
+    idx = ij[..., 1] * w + ij[..., 0]
+    if lead:
+        idx = idx + torch.arange(idx.shape[0], device=idx.device)[:, None] * (h * w)
+    flat = torch.zeros(idx.shape[0] * h * w if lead else h * w, dtype=torch.float32, device=p3d.device)
+    flat = flat.scatter_reduce(0, idx.reshape(-1), inb.float().reshape(-1), reduce="amax")
+    m = flat.reshape(*lead, h, w)
     m = dilate(m, close_size, 1)
     m = erode(m, close_size, 1)
     m = dilate(m, close_size, dilate_iters)
-    m = m.repeat_interleave(down, dim=0).repeat_interleave(down, dim=1)
-    return m[:H, :W]
+    m = m.repeat_interleave(down, dim=-2).repeat_interleave(down, dim=-1)
+    return m[..., :H, :W]

@@ -31,7 +31,7 @@ def main(n: int, samples: int):
 
     from chip_smoke import exact_field, nvidia_smi_line
     from pixtrack_tpu_torch.nerf import fused_mlp
-    from pixtrack_tpu_torch.nerf.optim import Adam
+    from pixtrack_tpu_torch.nerf.optim import Adam, exponential_decay
     from pixtrack_tpu_torch.nerf.render import RenderConfig, render_rays
     from test_torch_cuda import _field
 
@@ -45,7 +45,7 @@ def main(n: int, samples: int):
     out = render_rays(field, o, -o / 1.6, torch.tensor([[0.25] * 3, [0.75] * 3], device=dev),
                       RenderConfig(n_coarse=32, n_fine=0, fused=False))
     (out["rgb"] - 0.5).square().mean().backward()
-    Adam(params, 1e-2, 10, 1e-3).step()
+    Adam(params, lambda k: exponential_decay(1e-2, 10, 1e-3, k)).step()
     rows = []
     for seed in range(n):
         g = torch.Generator().manual_seed(seed)

@@ -34,8 +34,8 @@ from test_torch_asset_pipeline import HOUSE, _small_snapshot
 
 torch.set_num_threads(2)
 CPU = "cpu"
-SUBCOMMANDS = ("track", "track-ycb", "visualize", "eval", "demo", "bench", "extract-frames", "convert-images",
-               "reconstruct", "sfm-from-obj", "train-nerf", "nerf-sfm", "augment", "bundle-adjust")
+SUBCOMMANDS = ("track", "track-batch", "track-ycb", "visualize", "eval", "demo", "bench", "extract-frames",
+               "convert-images", "reconstruct", "sfm-from-obj", "train-nerf", "nerf-sfm", "augment", "bundle-adjust")
 
 
 def port(argv):
@@ -48,7 +48,7 @@ def test_help_lists_every_subcommand(capsys):
     assert e.value.code == 0
     out = capsys.readouterr().out
     choices = out[out.index("{") + 1:out.index("}")].split(",")
-    assert sorted(choices) == sorted(SUBCOMMANDS)  # track-batch waits for the video-batch tracker
+    assert sorted(choices) == sorted(SUBCOMMANDS)
 
 
 def test_bench_stops_with_a_message():

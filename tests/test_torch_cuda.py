@@ -324,7 +324,7 @@ def test_k1_and_k2_follow_an_in_place_finetune_step(cuda_device):
     slack (8 of 20 draws broke it; 1 of 20 at 65,539; none at 262,147), so
     the draw holds 262,147 samples, from a seeded generator."""
     from chip_smoke import EXACT_RATIO, EXACT_SLACK, exact_field
-    from pixtrack_tpu_torch.nerf.optim import Adam
+    from pixtrack_tpu_torch.nerf.optim import Adam, exponential_decay
 
     field = _field(10, cuda_device)
     o_g, d_g, tn, tf = _rays(2048, cuda_device)
@@ -341,7 +341,7 @@ def test_k1_and_k2_follow_an_in_place_finetune_step(cuda_device):
     out = render_rays(field, o, -o / 1.6, torch.tensor([[0.25] * 3, [0.75] * 3], device=cuda_device),
                       RenderConfig(n_coarse=32, n_fine=0, fused=False))
     (out["rgb"] - 0.5).square().mean().backward()
-    Adam(params, 1e-2, 10, 1e-3).step()
+    Adam(params, lambda k: exponential_decay(1e-2, 10, 1e-3, k)).step()
     with torch.no_grad():
         after = fused_mlp.fused_march_render(field, o_g, d_g, tn, tf, 96, 1e-7)
         ref = fused_mlp.march_render_reference(field, o_g, d_g, tn, tf, 96, 1e-7)

@@ -202,7 +202,8 @@ def test_import_guard():
     assert len(srcs) >= 80
     # the learned SfM components, the demo's world and the image conversion are in the walk
     for mod in ("mapping/dense_descriptor.py", "mapping/superpoint.py", "mapping/attention_matcher.py",
-                "mapping/train_matcher.py", "pipelines/demo_world.py", "utils/image_convert.py"):
+                "mapping/train_matcher.py", "pipelines/demo_world.py", "utils/image_convert.py",
+                "parallel/video.py", "parallel/mesh.py"):
         assert REPO / "pixtrack_tpu_torch" / mod in srcs, mod
     seen_lazy = set()
     for src in srcs:

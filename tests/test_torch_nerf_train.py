@@ -109,7 +109,7 @@ def test_adam_and_schedule_match_optax():
         pj = [jnp.asarray(a) for a in p0]
         state = opt.init(pj)
         pt = [torch.tensor(a) for a in p0]
-        adam = Adam(pt, 1e-2, 10, 1e-4, **kw)
+        adam = Adam(pt, lambda k: exponential_decay(1e-2, 10, 1e-4, k), **kw)
         for g in grads:
             upd, state = opt.update([jnp.asarray(a) for a in g], state, pj)
             pj = optax.apply_updates(pj, upd)
