@@ -107,7 +107,7 @@ nothing of JAX. Phases:
     4 starts, the production LM) on the JAX package's own scenes
     (``scripts_dev/evaluate_jax.npz``) for the shipped UNet and the
     handcrafted pyramid, held to JAX's per-start outcome, and for phase 35's
-    UNet, held between them;
+    UNet, held between them (in worker processes while phase 37 runs);
 37. phase 7's fused frame in open loop with phase 35's UNet, K1 launches
     counted;
 38. the command line: ``demo`` (6 frames, the JAX test's success gate);
@@ -124,11 +124,11 @@ nothing of JAX. Phases:
 40. ``reconstruct --detector dense`` over phase 30's images and what it
     runs at seeds 1-7 (in worker processes, while phases 38-39 run), the
     median held to JAX's over seeds 0-7;
-41. offline tracking at batch (``parallel/video.py``): B = 1, 2, 4 and 8
-    videos of the mesh world's 20-frame orbit from perturbed first poses,
+41. offline tracking at batch (``parallel/video.py``): B = 1 and 8 videos
+    of the mesh world's 20-frame orbit from perturbed first poses,
     every video's reference rendered in one K1 launch a timestep, each video
     held to the JAX package's run of it (``scripts_dev/video_batch_jax.npz``);
-    frames/s at each B, the gaps between B = 8 and smaller B, one B = 8
+    frames/s at each B, the gaps between B = 8 and B = 1, one B = 8
     step's CUDA-event split, K1 at B * 224 * 224 rays against its plain
     version; ``track-batch`` through the CLI over phases 21-24's object
     folder against the same calls through the API;
@@ -139,7 +139,16 @@ nothing of JAX. Phases:
 43. the attention matcher trained on the card: the plane-pair trainer and
     the mesh-pair bank trainer on its host path at seeds 0-2 and on its
     device-resident path, held-out NLLs against the untrained matcher's,
-    steps/s.
+    steps/s;
+44. SuperPoint trained on the card: the MagicPoint trainer with its texture
+    label bank and the dense-distillation trainer with its pair bank (the
+    banks built in worker processes while phases 41-43 run), steps cut:
+    logged losses, the held-out detector and descriptor terms each against
+    the untrained net's, steps/s and a CUDA-event split of a step; cell
+    labels on the card against the CPU; both repeatability gates for the
+    candidate weights and Harris held to JAX's on the CPU
+    (``scripts_dev/superpoint_jax.npz``), and for the untrained and the two
+    trained nets.
 
 Every phase prints its wall time. Every check raises on failure, so any failed phase exits non-zero. The
 second-to-last line is the kernel table as JSON; the last line is
@@ -3070,20 +3079,22 @@ def eval_job(name: str, weights):
     return starts, time.perf_counter() - t0
 
 
-def phase_feature_eval(card_weights: Path):
+def eval_weights(card_weights: Path) -> dict:
+    """Phase 36's extractors: the shipped UNet, the handcrafted pyramid and
+    phase 35's UNet (read back from ``card_weights``)."""
+    return {"unet_basin": REPO / "assets" / "unet_basin.npz", "handcrafted": None, "card-trained": card_weights}
+
+
+def phase_feature_eval(jobs: dict):
     """Phase 36: the held-out benchmark (FeatureEvalConfig(n_scenes=12,
     n_perturb=4), the production LM at 100 iterations) on the JAX package's
-    scenes for the shipped UNet, the handcrafted pyramid and phase 35's UNet
-    (read back from ``card_weights``), the three side by side in worker
-    processes; the first two held to JAX's per-start outcome, the third to
-    the other two."""
+    scenes for ``eval_weights``' three extractors, run side by side in worker
+    processes (``jobs``: their futures); the first two held to JAX's
+    per-start outcome, the third to the other two."""
     from pixtrack_tpu_torch.features.evaluate import converged, summarize
 
     tpu = json.loads((REPO / "assets" / "unet_basin_eval.json").read_text())
-    weights = {"unet_basin": REPO / "assets" / "unet_basin.npz", "handcrafted": None, "card-trained": card_weights}
-    with worker_pool(len(weights)) as pool:
-        jobs = {name: pool.submit(eval_job, name, w) for name, w in weights.items()}
-        results = {name: job.result() for name, job in jobs.items()}
+    results = {name: job.result() for name, job in jobs.items()}
     counts = {}
     with np.load(EVAL_JAX) as ref:
         for name, (starts, seconds) in results.items():
@@ -3137,8 +3148,14 @@ def phase_unet_training(device):
     infonce = timed_phase("phase 34, InfoNCE training", phase_infonce, device)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_unet_") as tmp:
         model, basin = timed_phase("phase 35, basin training", phase_basin, device, Path(tmp))
-        counts = timed_phase("phase 36, the held-out alignment benchmark", phase_feature_eval, basin["weights"])
-    tracked = timed_phase("phase 37, tracking with the card-trained UNet", phase_track_card_unet, device, model)
+        weights = eval_weights(basin["weights"])
+        with worker_pool(len(weights)) as pool:
+            # phase 36's benchmarks run in the workers while phase 37 runs here
+            jobs = {name: pool.submit(eval_job, name, w) for name, w in weights.items()}
+            tracked = timed_phase("phase 37, tracking with the card-trained UNet", phase_track_card_unet, device,
+                                  model)
+            counts = timed_phase("phase 36, the held-out alignment benchmark (after phase 37)", phase_feature_eval,
+                                 jobs)
     return {"infonce": infonce, "basin": basin, "counts": counts, **tracked}
 
 
@@ -3541,7 +3558,10 @@ def phase_cli_and_learned(device, work: Path, assets, harris_median: float) -> d
 #   three and prints the port's own spread there, and prints video 0's
 #   per-frame gap to JAX at B = 8, where the two tracks part.
 VIDEO_JAX = REPO / "scripts_dev" / "video_batch_jax.npz"
-VIDEO_BS, VIDEO_FRAMES, VIDEO_ITERS = (1, 2, 4, 8), 20, 30
+# B = 2 and 4 and the k·1e-6 batch of video 0 (a spread of 0.064 deg) were
+# cut for time; B = 8 holds every video to JAX's, B = 1 is the
+# unbatched call and the batch-invariance check.
+VIDEO_BS, VIDEO_FRAMES, VIDEO_ITERS = (1, 8), 20, 30
 VIDEO_DELTA = np.array([0.01] * 3 + [0.015] * 3)
 VIDEO_OK_SLACK, VIDEO_MED_SLACK_DEG, VIDEO_COST_MIN = 1, 0.5, 0.05
 VIDEO_POSE_DEG, VIDEO_COST_REL = 0.5, 2e-3
@@ -3573,6 +3593,25 @@ DESC_SCENES, DESC_STEPS, DESC_LOG_EVERY, DESC_HOLDOUT_PAIRS = 16, 600, 100, 32
 # 9.2531; untrained 9.59-10.48.
 PLANE_STEPS, PLANE_LOG_EVERY = 100, 10
 MBANK_SCENES, BANK_STEPS, BANK_LOG_EVERY, BANK_CHUNK = 4, 150, 25, 10
+# Phase 44: SuperPoint's two trainers at their recipes' widths. The MagicPoint
+# trainer (scripts_dev/train_superpoint_run.py: SPTrainConfig, batch 8 + 8
+# bank crops, 120 px, grid 3) on a texture label bank of SP_TEX_SCENES of its
+# 32 scenes (6 views, 12 warps, 160 px); the dense trainer
+# (scripts_dev/train_superpoint_dense_run.py: SPDenseConfig, batch 8, 160 px)
+# on a dense pair bank of SP_DENSE_SCENES of its 24 mesh and 24 shape scenes
+# (8 views, 10 warps); both cut to SP_STEPS of 3000 / 4000 steps. The banks
+# are the recipes' first scenes, built in the workers (device "cpu") while
+# phases 41-43 run. The reference (scripts_dev/superpoint_jax.npz, JAX on the
+# CPU) holds repeatability's six scenes, JAX's two gates for the candidate
+# weights and Harris, and a fixed held-out batch of each recipe with JAX's
+# (detector, descriptor) terms at the candidate's weights and at JAX's
+# init_superpoint(PRNGKey(0)). The candidate's and Harris's gates are held to
+# JAX's: each mean within SP_REP_TOL, each pair's count within SP_COUNT_REL of
+# JAX's; the candidate's terms on the held-out batches within SP_TERM_RTOL.
+SP_STEPS, SP_LOG_EVERY = 300, 50
+SP_TEX_SCENES, SP_DENSE_SCENES = 4, 4
+SP_REP_TOL, SP_COUNT_REL, SP_TERM_RTOL = 0.02, 0.03, 1e-3
+SP_JAX = REPO / "scripts_dev" / "superpoint_jax.npz"
 
 
 def same_basin_gaps(out: dict, ref, B: int) -> list:
@@ -3709,15 +3748,6 @@ def phase_video_batch(device, assets) -> dict:
     gap0 = [rot_err_deg(outs[8]["R"][k, 0], ref["R"][k, 0]) for k in range(VIDEO_FRAMES)]
     log(f"[video batch] video 0 at B=8, each frame's rotation against JAX's (deg): {[round(g, 2) for g in gap0]}; "
         f"costs {[round(float(c), 4) for c in outs[8]['cost'][:, 0]]} (JAX {[round(float(c), 4) for c in ref['cost'][:, 0]]})")
-    # video 0 from starts moved by k * 1e-6 along x, k = 0, 1, 2, as one batch of three
-    t_k = t0[:1].repeat(3, 1)
-    t_k[:, 0] += torch.arange(3, device=device) * 1e-6
-    pert = track_video_batch(run, R0[:1].expand(3, 3, 3), t_k, video[None].expand(3, *video.shape))
-    rot_k = np.asarray([[rot_err_deg(pert["R"][k, j], gt_R[k]) for j in range(3)] for k in range(VIDEO_FRAMES)])
-    ok_k, med_k = video_outcome(pert["cost"], rot_k)
-    log(f"[video batch] video 0 from starts moved by k * 1e-6 along x, k = 0, 1, 2 (one batch of three): rotation "
-        f"medians {[round(float(m), 3) for m in med_k]} deg, spread {float(med_k.max() - med_k.min()):.3f}, "
-        f"successes {ok_k.tolist()}; JAX's at k = 0, 1 {float(jax_med[0]):.3f} / {float(ref['rot_median_deg_k1'][0]):.3f}")
     launches = fused_mlp.launch_count(fused_mlp.K1)
     gaps = {}
     for B in VIDEO_BS[:-1]:
@@ -3947,8 +3977,196 @@ def phase_matcher_training(device, mbanks, pool, work: Path) -> dict:
             "nll": {"host": host, "device": dev_nll}}
 
 
+def texture_bank_job(n_scenes: int) -> tuple:
+    """The MagicPoint recipe's texture label bank, its first ``n_scenes``
+    scenes, on the worker's CPU; (bank, seconds)."""
+    from pixtrack_tpu_torch.mapping.train_superpoint import build_texture_label_bank
+
+    t0 = time.perf_counter()
+    return build_texture_label_bank(n_scenes=n_scenes, device="cpu"), time.perf_counter() - t0
+
+
+def dense_bank_job(workdir: str, n_scenes: int, n_shape_scenes: int) -> tuple:
+    """The dense recipe's pair bank, its first mesh and shape scenes, on the
+    worker's CPU; (bank, seconds)."""
+    from pixtrack_tpu_torch.mapping.train_superpoint_dense import build_dense_pair_bank
+
+    t0 = time.perf_counter()
+    bank = build_dense_pair_bank(workdir, n_scenes=n_scenes, n_shape_scenes=n_shape_scenes, device="cpu")
+    return bank, time.perf_counter() - t0
+
+
+def sp_heldout(ref: dict, recipe: str, device) -> tuple:
+    """A recipe's fixed held-out batch from the reference, on the card, in
+    its trainer's batch layout."""
+    import torch
+
+    b = {k.split("/", 1)[1]: v for k, v in ref.items() if k.startswith(recipe + "/")}
+    names = ("img0", "img1", "lab0", "lab1", "H") if recipe == "magic" else ("img0", "img1", "v0", "v1", "corr",
+                                                                              "cvalid")
+    out = []
+    for k in names:
+        v = b[k]
+        v = v.astype(np.float32) if v.dtype == np.float16 else v.astype(np.int64) if v.dtype == np.uint8 else v
+        out.append(torch.as_tensor(v, device=device))
+    return tuple(out)
+
+
+def sp_step_split(train, cfg, steps=3) -> dict:
+    """CUDA events over the last of ``steps`` steps of a SuperPoint trainer,
+    run through its own loop from its own start (``train(cfg, mark)``, the
+    trainer's ``mark`` hook): the batch (its draws and synthesis or
+    sampling), the forward of each view, the loss terms, backward, clip +
+    Adam; and the host's wall time of the step. ms."""
+    import dataclasses
+
+    import torch
+
+    events, wall = [], {}
+
+    def mark(label):
+        if label == "start":
+            torch.cuda.synchronize()
+            events.clear()
+            wall["t0"] = time.perf_counter()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append((label, ev))
+        if label == "clip + Adam":
+            torch.cuda.synchronize()
+            wall["ms"] = (time.perf_counter() - wall["t0"]) * 1e3
+
+    train(dataclasses.replace(cfg, n_steps=steps), mark)
+    return {"step (events)": events[0][1].elapsed_time(events[-1][1]),
+            **{label: events[i - 1][1].elapsed_time(ev) for i, (label, ev) in enumerate(events) if i},
+            "step (host wall)": wall["ms"]}
+
+
+def sp_trainer_run(label: str, cfg, train, terms, held, device) -> dict:
+    """One trainer at ``cfg`` on the card (``train(cfg, mark=None)``): its
+    step split, the run, and the held-out batch's two terms for the
+    untrained net (the trainer's own start, seeded ``cfg.seed``) and the
+    trained one, each term gated apart."""
+    import torch
+
+    from pixtrack_tpu_torch.mapping.superpoint import init_superpoint
+    from pixtrack_tpu_torch.mapping.train_superpoint import forward_views
+
+    def held_terms(net):
+        with torch.no_grad():
+            return [float(x) for x in terms(cfg, held, *forward_views(net, held))]
+
+    split = sp_step_split(train, cfg)
+    before = held_terms(init_superpoint(torch.Generator().manual_seed(cfg.seed), device))
+    net, info = train(cfg)
+    after = held_terms(net)
+    hist = [v for _, v in info["history"]]
+    sps = cfg.n_steps / info["seconds"]
+    log(f"[superpoint, {label}] one step at its widths (CUDA events, ms): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in split.items()))
+    log(f"[superpoint, {label}] {cfg.n_steps} steps at {sps:.2f} steps/s ({info['seconds']:.1f} s); logged loss "
+        f"{[(k, round(v, 4)) for k, v in info['history']]}; held-out (detector, descriptor) terms untrained "
+        f"({before[0]:.4f}, {before[1]:.4f}), trained ({after[0]:.4f}, {after[1]:.4f})")
+    check(all(np.isfinite(hist)), f"superpoint, {label}: a logged loss is not finite: {hist}")
+    check(hist[-1] < hist[0], f"superpoint, {label}: the last logged loss {hist[-1]:.4f} >= the first {hist[0]:.4f}")
+    for k, name in enumerate(("detector", "descriptor")):
+        check(after[k] < before[k], f"superpoint, {label}: the held-out {name} term {after[k]:.4f} >= the untrained "
+                                    f"net's {before[k]:.4f}")
+    return {"net": net, "steps_per_s": sps, "split": split, "terms": (before, after)}
+
+
+def phase_superpoint(device, tex_job, dense_jobs) -> dict:
+    """Phase 44: both SuperPoint trainers on the card at their recipes'
+    widths, steps cut; labels on the card against the CPU; both
+    repeatability gates for the candidate weights and Harris held to JAX's,
+    and for the untrained and the two trained nets."""
+    import torch
+
+    from pixtrack_tpu_torch.mapping import train_superpoint as ts
+    from pixtrack_tpu_torch.mapping import train_superpoint_dense as td
+    from pixtrack_tpu_torch.mapping.superpoint import init_superpoint, load_superpoint_weights
+
+    with np.load(SP_JAX) as z:
+        ref = {k: z[k] for k in z.files}
+    tex, tex_s = tex_job.result()
+    parts = [j.result() for j in dense_jobs]
+    dense = merge_banks([b for b, _ in parts])
+    log(f"[superpoint, banks] texture label bank: {tex['images'].shape[0]} views of {SP_TEX_SCENES} scenes, "
+        f"{int(tex['valid'].sum())} labels, built in {tex_s:.1f} s; dense pair bank: {dense['images'].shape[0]} views, "
+        f"{dense['pairs'].shape[0]} pairs of {SP_DENSE_SCENES} mesh + {SP_DENSE_SCENES} shape scenes, built in "
+        + " + ".join(f"{t:.1f}" for _, t in parts) + " s (in the workers, side by side)")
+
+    # labels: one bank batch's corners on the card, labelled there and on the CPU
+    cfg = ts.SPTrainConfig(n_steps=SP_STEPS, log_every=SP_LOG_EVERY)
+    bank_dev = ts.bank_tensors(tex, device)
+    d = ts.bank_draws(cfg, *bank_dev["images"].shape[:2], (cfg.bank_batch,),
+                      torch.Generator(device=device).manual_seed(5), device)
+    kp, kv = ts.bank_corners(cfg, bank_dev, d)
+    H = ts.random_homography(d["homography"], cfg.size, cfg.max_warp)
+    shared = 0
+    for corners in (kp, ts.apply_homography(H, kp)):
+        card = ts.cell_labels(corners, kv, cfg.size).cpu()
+        cpu = ts.cell_labels(corners.cpu(), kv.cpu(), cfg.size)
+        check(torch.equal(card, cpu), f"superpoint: cell labels on the card differ from the CPU's in "
+                                      f"{int((card != cpu).sum())} cells")
+        xi, yi = torch.round(corners.cpu()).long().unbind(-1)
+        inb = kv.cpu() & (xi >= 0) & (xi < cfg.size) & (yi >= 0) & (yi < cfg.size)
+        cell = ((yi // 8) * (cfg.size // 8) + xi // 8)[inb]
+        per = torch.bincount(cell + inb.nonzero()[:, 0] * (cfg.size // 8) ** 2)
+        shared += int((per > 1).sum())
+    log(f"[superpoint, labels] {cfg.bank_batch} bank crops and their warps: labels on the card equal to the CPU's in "
+        f"every cell; {shared} cells hold more than one corner")
+    check(shared > 0, "superpoint: no cell of the label check holds two corners")
+
+    magic = sp_trainer_run(
+        "MagicPoint", cfg, lambda c, mark=None: ts.train_superpoint(c, bank=tex, device=device, mark=mark),
+        ts.loss_terms, sp_heldout(ref, "magic", device), device)
+    dcfg = td.SPDenseConfig(n_steps=SP_STEPS, log_every=SP_LOG_EVERY)
+    dense_run = sp_trainer_run(
+        "dense", dcfg, lambda c, mark=None: td.train_superpoint_dense(c, dense, device=device, mark=mark),
+        td.dense_loss_terms, sp_heldout(ref, "dense", device), device)
+
+    cand = load_superpoint_weights(REPO / "assets" / "superpoint_candidate.npz", device=device)
+    for recipe, c, terms in (("magic", cfg, ts.loss_terms), ("dense", dcfg, td.dense_loss_terms)):
+        held = sp_heldout(ref, recipe, device)
+        with torch.no_grad():
+            got = [float(x) for x in terms(c, held, *ts.forward_views(cand, held))]
+        want, jinit = ref[f"{recipe}/candidate"], ref[f"{recipe}/init"]
+        log(f"[superpoint, {recipe} held-out batch] the candidate's (detector, descriptor) terms ({got[0]:.6f}, "
+            f"{got[1]:.6f}), JAX on the CPU ({want[0]:.6f}, {want[1]:.6f}); JAX's init_superpoint(PRNGKey(0)) "
+            f"({jinit[0]:.4f}, {jinit[1]:.4f})")
+        check(np.allclose(got, want, rtol=SP_TERM_RTOL, atol=0),
+              f"superpoint: the candidate's {recipe} terms {got} against JAX's {list(want)}")
+
+    rep_draws = {"scene": {k.rsplit("/", 1)[1]: v for k, v in ref.items() if k.startswith("rep/scene/")},
+                 "homography": ref["rep/homography"]}
+    nets = {"candidate": cand, "harris": None,
+            "untrained": init_superpoint(torch.Generator().manual_seed(0), device),
+            "MagicPoint (here)": magic["net"], "dense (here)": dense_run["net"]}
+    gates = {}
+    for name, net in nets.items():
+        det = "harris" if net is None else "superpoint"
+        t0 = time.perf_counter()
+        rep, counts = ts.repeatability(net, detector=det, draws=rep_draws, device=device)
+        mrep, mcounts = ts.mesh_repeatability(net, detector=det, device=device)
+        gates[name] = {"rep": rep, "counts": counts, "mesh": mrep, "mesh_counts": mcounts}
+        jax_ref = ""
+        if name in ("candidate", "harris"):
+            key = "superpoint" if name == "candidate" else "harris"
+            jr, jc = float(ref[f"rep_{key}"]), ref[f"rep_{key}_counts"].tolist()
+            jm, jmc = float(ref[f"mesh_{key}"]), ref[f"mesh_{key}_counts"].tolist()
+            jax_ref = f" (JAX on the CPU {jr:.4f} {jc}; mesh {jm:.4f} {jmc})"
+            for what, a, b, ca, cb in (("repeatability", rep, jr, counts, jc), ("mesh", mrep, jm, mcounts, jmc)):
+                check(abs(a - b) <= SP_REP_TOL, f"superpoint, {name}: {what} {a:.4f} against JAX's {b:.4f}")
+                check(len(ca) == len(cb) and all(abs(x - y) <= SP_COUNT_REL * y for x, y in zip(ca, cb)),
+                      f"superpoint, {name}: {what} counts {ca} against JAX's {cb}")
+        log(f"[superpoint, gates] {name}: repeatability {rep:.4f} {counts}; mesh repeatability {mrep:.4f} "
+            f"{mcounts}{jax_ref}; {time.perf_counter() - t0:.1f} s")
+    return {"magic_sps": magic["steps_per_s"], "dense_sps": dense_run["steps_per_s"], "gates": gates}
+
+
 def phase_batch_and_trainers(device, work: Path, assets, ab_patch: dict) -> dict:
-    """Phases 41-43, each timed. The trainers' banks are built in the workers
+    """Phases 41-44, each timed. The trainers' banks are built in the workers
     (on their CPU) while phase 41 runs here; ``track-batch`` and three of
     the bank trainer's four runs run in the workers while phases 42-43 run
     here (the steps/s printed are then those of runs that share the card and
@@ -3958,13 +4176,17 @@ def phase_batch_and_trainers(device, work: Path, assets, ab_patch: dict) -> dict
         desc = [pool.submit(descriptor_bank_job, str(work / "descbank" / str(k)), per, 500 + k) for k in range(4)]
         held = pool.submit(descriptor_bank_job, str(work / "descbank" / "held"), 2, 900)
         mbanks = [pool.submit(matcher_bank_job, str(work / "mbank" / str(s)), s) for s in range(1, MBANK_SCENES + 1)]
+        tex = pool.submit(texture_bank_job, SP_TEX_SCENES)
+        dense = [pool.submit(dense_bank_job, str(work / "spbank" / "mesh"), SP_DENSE_SCENES, 0),
+                 pool.submit(dense_bank_job, str(work / "spbank" / "shape"), 0, SP_DENSE_SCENES)]
         video = timed_phase("phase 41, the video batch", phase_video_batch, device, assets)
         track_batch = pool.submit(track_batch_job, str(work))
         descriptor = timed_phase("phase 42, the dense descriptor trained", phase_descriptor_training, device, work, desc,
                                  held, ab_patch)
         matcher = timed_phase("phase 43, the matcher trained", phase_matcher_training, device, mbanks, pool, work)
+        superpoint = timed_phase("phase 44, SuperPoint trained", phase_superpoint, device, tex, dense)
         video["track_batch"] = timed_phase("phase 41, track-batch", phase_track_batch, track_batch, assets)
-    return {"video": video, "descriptor": descriptor, "matcher": matcher}
+    return {"video": video, "descriptor": descriptor, "matcher": matcher, "superpoint": superpoint}
 
 
 # -------------------------------------------------------------------- main --
@@ -4098,8 +4320,8 @@ def main() -> int:
         # components, and reconstruct --detector dense (no kernel on these paths)
         later = phase_cli_and_learned(device, Path(tmp), assets, unposed["arc_median"]["global_deg"])
 
-        # phases 41-43: the video batch over the mesh world (K1 counted) and track-batch over phases 21-24's
-        # object folder; the dense descriptor and the matcher trained on the card
+        # phases 41-44: the video batch over the mesh world (K1 counted) and track-batch over phases 21-24's
+        # object folder; the dense descriptor, the matcher and SuperPoint trained on the card (no kernel)
         batch = phase_batch_and_trainers(device, Path(tmp), assets, later["learned"]["ab"]["patch"])
     log("[launches] phase 12 (jittered renders, spp=4): K2 "
         + ", ".join(f"{n} at {w}x{h}" for (w, h), n in jitter_launches.items()) + "; phases 13-15 (K1, K2): "
@@ -4166,7 +4388,8 @@ def main() -> int:
         + f"; K1 at {batch['video']['k1']['shape']} {batch['video']['k1']['ms']:.3f} ms (bound "
         f"{batch['video']['k1']['bound_ms']:.3f}); descriptor training {batch['descriptor']['steps_per_s']:.2f} "
         f"steps/s, matcher plane pairs {batch['matcher']['plane_sps']:.2f}, bank host {batch['matcher']['host_sps']:.2f}, "
-        f"bank device-resident {batch['matcher']['device_sps']:.2f} steps/s")
+        f"bank device-resident {batch['matcher']['device_sps']:.2f} steps/s; SuperPoint MagicPoint "
+        f"{batch['superpoint']['magic_sps']:.2f}, dense {batch['superpoint']['dense_sps']:.2f} steps/s")
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                             "count": torch.cuda.device_count()}}))
     return 0

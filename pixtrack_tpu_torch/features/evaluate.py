@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from pixtrack_tpu_torch._device import resolve
+from pixtrack_tpu_torch._draws import _rand, _randn
 from pixtrack_tpu_torch.align.lm import AlignConfig, align_pyramid
 from pixtrack_tpu_torch.align.observations import build_level_data, observe_points
 from pixtrack_tpu_torch.features.train_basin import (
@@ -35,7 +36,6 @@ from pixtrack_tpu_torch.features.train_basin import (
     render_plane,
     texture_draws,
 )
-from pixtrack_tpu_torch.features.train import _rand, _randn
 
 
 @dataclasses.dataclass(frozen=True)

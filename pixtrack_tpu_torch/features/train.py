@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from pixtrack_tpu_torch._device import resolve, true_f32
+from pixtrack_tpu_torch._draws import _rand, _randn, _uniform
 from pixtrack_tpu_torch.align.interpolate import interpolate_features
 from pixtrack_tpu_torch.features.unet import (
     UNetExtractor,
@@ -53,33 +54,6 @@ class FeatureTrainConfig:
 
 
 # ------------------------------------------------------------------ draws ---
-def _rand(generator, device, *shape) -> torch.Tensor:
-    return torch.rand(shape, generator=generator, device=device)
-
-
-def _randn(generator, device, *shape) -> torch.Tensor:
-    return torch.randn(shape, generator=generator, device=device)
-
-
-def _np_dtype(t: torch.Tensor):
-    return np.float64 if t.dtype == torch.float64 else np.float32
-
-
-def _uniform(u01: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
-    """A [0, 1) draw mapped into [lo, hi) as jax.random.uniform maps its own:
-    bounds in the draw's precision, clamped at lo."""
-    dt = _np_dtype(u01)
-    lo_, hi_ = dt(lo), dt(hi)
-    return torch.clamp_min(u01 * float(hi_ - lo_) + float(lo_), float(lo_))
-
-
-def _normal_of_uniform(u01: torch.Tensor) -> torch.Tensor:
-    """The standard normal jax.random.normal makes of the same [0, 1) draw
-    (a uniform on (nextafter(-1, 0), 1) through sqrt(2) erfinv)."""
-    dt = _np_dtype(u01)
-    return float(dt(np.sqrt(2.0))) * torch.erfinv(_uniform(u01, np.nextafter(dt(-1.0), dt(0.0)), 1.0))
-
-
 def texture_batch_draws(batch: int, generator=None, device=None) -> dict:
     n_modes = 24
     return {"freqs": _rand(generator, device, batch, 3, n_modes, 2),

@@ -37,17 +37,12 @@ import torch
 import torch.nn.functional as F
 
 from pixtrack_tpu_torch._device import resolve, true_f32
+from pixtrack_tpu_torch._draws import _normal_of_uniform, _rand, _randn, _uniform
 from pixtrack_tpu_torch.align.interpolate import interpolate_features
 from pixtrack_tpu_torch.align.lm import AlignConfig, LevelData, _residuals_and_jacobian
 from pixtrack_tpu_torch.align.observations import build_level_data, observe_points
 from pixtrack_tpu_torch.features.pyramid import FeaturePyramid
-from pixtrack_tpu_torch.features.train import (
-    _grid,
-    _normal_of_uniform,
-    _rand,
-    _randn,
-    _uniform,
-)
+from pixtrack_tpu_torch.features.train import _grid
 from pixtrack_tpu_torch.features.unet import UNetExtractor, init_unet, normalize_features
 from pixtrack_tpu_torch.geometry import Camera, Pose
 from pixtrack_tpu_torch.nerf.optim import Adam, clip_by_global_norm

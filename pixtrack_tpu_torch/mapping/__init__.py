@@ -4,6 +4,11 @@ posed-view SfM (detection, matching, triangulation, augmentation), and the
 unposed SfM (two-view geometry, PnP, global averaging, the incremental
 mapper).
 
+SuperPoint's trainers are ``mapping.train_superpoint`` (the MagicPoint
+recipe with its texture label bank, and the two repeatability gates) and
+``mapping.train_superpoint_dense`` (dense distillation on a pair bank);
+their configurations and gates are exported here.
+
 The learned SfM components at inference (``dense_descriptor``,
 ``superpoint``, ``attention_matcher``) are loaded from their checkpoints as
 the JAX package loads them (``pixtrack_tpu/mapping/__init__.py``):
@@ -34,6 +39,8 @@ from pixtrack_tpu_torch.mapping.mesh_render import (
     sample_mesh_surface,
     write_png,
 )
+from pixtrack_tpu_torch.mapping.train_superpoint import SPTrainConfig, mesh_repeatability, repeatability
+from pixtrack_tpu_torch.mapping.train_superpoint_dense import SPDenseConfig
 from pixtrack_tpu_torch.mapping.triangulate import triangulate_scene, triangulate_tracks
 
 _ASSETS = Path(__file__).resolve().parents[2] / "assets"
@@ -127,8 +134,8 @@ def default_descriptor(max_keypoints: int = 1024, device=None, **kw):
 
 __all__ = ["average_rotations", "average_translations", "decompose_homography", "default_descriptor",
            "default_descriptor_weights_path", "default_detector", "default_matcher", "default_matcher_weights_path",
-           "default_superpoint_weights_path", "describe_keypoints",
-           "detect_keypoints", "estimate_relative_pose", "exhaustive_pairs", "global_initialize",
-           "icosphere_directions", "incremental_sfm", "load_obj", "look_at_rig_for_mesh", "match_descriptors",
-           "read_png", "refine_pose_reprojection", "refine_relative_pose_sampson", "render_mesh",
-           "sample_mesh_surface", "triangulate_scene", "triangulate_tracks", "write_png"]
+           "default_superpoint_weights_path", "describe_keypoints", "detect_keypoints", "estimate_relative_pose",
+           "exhaustive_pairs", "global_initialize", "icosphere_directions", "incremental_sfm", "load_obj",
+           "look_at_rig_for_mesh", "match_descriptors", "mesh_repeatability", "read_png", "refine_pose_reprojection",
+           "refine_relative_pose_sampson", "render_mesh", "repeatability", "sample_mesh_surface", "SPDenseConfig",
+           "SPTrainConfig", "triangulate_scene", "triangulate_tracks", "write_png"]

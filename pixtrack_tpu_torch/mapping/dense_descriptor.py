@@ -35,6 +35,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from pixtrack_tpu_torch._device import resolve, true_f32
+from pixtrack_tpu_torch._draws import _rand, _randn, _uniform
 
 _CHANNELS = ((3, 32), (32, 32), (32, 64), (64, 64), (64, 128), (128, 128), (192, 128), (128, None))
 
@@ -279,8 +280,6 @@ def descriptor_draws(cfg: DescTrainConfig, n_pairs: int, size: int, generator=No
     """One step's draws: the batch's pair indices, and per image (view a's
     B images, then view b's) the gain's and the offset's [0, 1) uniforms and
     the noise field's normals."""
-    from pixtrack_tpu_torch.features.train import _rand, _randn
-
     n_img = 2 * cfg.batch_pairs
     return {"idx": torch.randint(0, n_pairs, (cfg.batch_pairs,), generator=generator, device=device),
             "gain": _rand(generator, device, n_img), "bias": _rand(generator, device, n_img),
@@ -300,8 +299,6 @@ def infonce_loss(net: DenseDescriptorNet, bank: dict, idx: torch.Tensor, cfg: De
     against all of view b's detected keypoints (negatives within
     ``exclude_px`` of the true match left out). With ``draws`` the images
     get the training jitter (gain, offset, noise, clamp); without, none."""
-    from pixtrack_tpu_torch.features.train import _uniform
-
     pa = bank["pairs"][idx].long()
     imgs = torch.cat([bank["images"][pa[:, 0]], bank["images"][pa[:, 1]]]).float() / 255.0
     if draws is not None:

@@ -10,7 +10,8 @@ fourth and sixth 3x3 conv). The layers carry the public SuperPoint names
 ``convDb``), so a public torch state_dict loads as it is
 (``port_torch_weights``), and ``load_superpoint_weights`` maps the JAX
 package's flax paths (``params/_VGGBlock_i/Conv_0``, ``Conv_0``,
-``Conv_1``: the layout of ``assets/superpoint_candidate.npz``) onto them.
+``Conv_1``: the layout of ``assets/superpoint_candidate.npz``) onto them
+through ``superpoint_from_flax``.
 Outputs keep the (keypoints, scores, descriptors) contract of
 ``mapping/detector.py``.
 """
@@ -189,17 +190,25 @@ def save_superpoint_weights(path, net: SuperPointNet) -> None:
     np.savez(path, __meta__=json.dumps({"keys": list(arrays)}), **arrays)
 
 
+def superpoint_from_flax(arrays: dict, device=None) -> SuperPointNet:
+    """A ``SuperPointNet`` on ``device`` (None is the CUDA card) from a flat
+    dict of numpy arrays keyed ``params/<flax path>/kernel|bias`` (the JAX
+    package's ``flatten_dict`` of its parameters, joined by "/"), every key
+    used and no other allowed."""
+    keys = set(arrays)
+    state = {}
+    for name, flax in _FLAX_PATH.items():
+        kernel, bias = f"params/{flax}/kernel", f"params/{flax}/bias"
+        state[f"{name}.weight"] = np.ascontiguousarray(np.asarray(arrays[kernel]).transpose(3, 2, 0, 1))
+        state[f"{name}.bias"] = np.asarray(arrays[bias])
+        keys -= {kernel, bias}
+    if keys:
+        raise ValueError(f"unexpected SuperPoint keys: {sorted(keys)}")
+    return port_torch_weights(state, device=device)
+
+
 def load_superpoint_weights(path, device=None) -> SuperPointNet:
     """A checkpoint of either package (``assets/superpoint_candidate.npz``'s
     layout), on ``device`` (None is the CUDA card)."""
     data = np.load(path, allow_pickle=False)
-    keys = set(json.loads(str(data["__meta__"]))["keys"])
-    state = {}
-    for name, flax in _FLAX_PATH.items():
-        kernel, bias = f"params/{flax}/kernel", f"params/{flax}/bias"
-        state[f"{name}.weight"] = np.ascontiguousarray(data[kernel].transpose(3, 2, 0, 1))
-        state[f"{name}.bias"] = data[bias]
-        keys -= {kernel, bias}
-    if keys:
-        raise ValueError(f"unexpected keys in {path}: {sorted(keys)}")
-    return port_torch_weights(state, device=device)
+    return superpoint_from_flax({k: data[k] for k in json.loads(str(data["__meta__"]))["keys"]}, device=device)

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from pixtrack_tpu_torch._device import resolve
+from pixtrack_tpu_torch._draws import _normal_of_uniform, _rand, _randn, _uniform
 
 
 def _np(x) -> np.ndarray:
@@ -233,7 +234,6 @@ def pair_draws(cfg: MatcherTrainConfig, lead: tuple = (), generator=None, device
     relative motion (``rel``: its magnitude's uniform; ``rel_dir``: its six
     normals, the first made of that same uniform), the planted points, the
     two views' distractors and the keypoint jitter's normals."""
-    from pixtrack_tpu_torch.features.train import _normal_of_uniform, _rand, _randn
     from pixtrack_tpu_torch.features.train_basin import texture_draws
 
     rel = _rand(generator, device, *lead)
@@ -251,7 +251,6 @@ def make_pair(d: dict, cfg: MatcherTrainConfig, camera):
     """Training pairs from their draws ``d`` (batched over a leading axis or
     not): (img0, img1, kp0, kp1, valid_match); the keypoints hold the
     planted matches first, then the distractors."""
-    from pixtrack_tpu_torch.features.train import _uniform
     from pixtrack_tpu_torch.features.train_basin import _look_at_w2c, random_texture, render_plane
 
     size = cfg.size

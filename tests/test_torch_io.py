@@ -167,6 +167,27 @@ def test_port_imports_no_jax():
                 assert words[1].split(".")[0] not in ("jax", "flax", "tqdm", "pixtrack_tpu"), (src, line)
 
 
+_EACH_FIRST = """
+import importlib, pkgutil, sys
+import pixtrack_tpu_torch as p
+mods = [m.name for m in pkgutil.walk_packages(p.__path__, "pixtrack_tpu_torch.")]
+for name in mods:
+    for k in [k for k in sys.modules if k.split(".")[0] == "pixtrack_tpu_torch"]:
+        del sys.modules[k]
+    importlib.import_module(name)
+print(len(mods))
+"""
+
+
+def test_each_port_module_imports_first():
+    """Every module of the port imports as the first of the package that an
+    interpreter loads, as a spawned worker imports the module of its job
+    (no import cycle)."""
+    out = subprocess.run([sys.executable, "-c", _EACH_FIRST], cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 30
+
+
 _FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "pixtrack_tpu", "tests")
 _LAZY_ONLY = ("cv2", "h5py", "yaml", "PIL", "imageio", "matplotlib", "tqdm", "msgpack")
 

@@ -72,7 +72,7 @@ def jax_batch_draws(key, cfg):
 def test_reused_key_is_kept():
     """The direction's first normal is the normal of the magnitude's uniform
     (JAX draws both from ``k_rel``); ``pair_draws`` keeps that."""
-    from pixtrack_tpu_torch.features.train import _normal_of_uniform
+    from pixtrack_tpu_torch._draws import _normal_of_uniform
 
     k = jax.random.PRNGKey(11)
     np.testing.assert_allclose(float(_normal_of_uniform(torch.tensor(float(U(k, ()))))), float(N(k, (6,))[0]),
