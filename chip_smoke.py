@@ -1712,12 +1712,13 @@ def phase_student(device, cap, tb, teacher_psnr, gate=True):
 def phase_assets(device, gate=True):
     """Phases 17-20, each timed; returns phase 20's launch counts, the
     student's largest K1 and staged-render errors against the plain versions,
-    and K1's 224x224 ray set (the student is saved in ASSET_WORKDIR)."""
+    K1's 224x224 ray set (the student is saved in ASSET_WORKDIR) and phase
+    17's capture."""
     cap = timed_phase("phase 17, the capture", phase_capture, device)
     field, teacher_psnr = timed_phase("phase 18, NeRF training at full width", phase_train, device, cap)
     tb = timed_phase("phase 19, snapshot and bake", phase_bake, device, cap, field)
     return timed_phase("phase 20, distil, fine-tune, render the student", phase_student, device, cap, tb,
-                       teacher_psnr, gate)
+                       teacher_psnr, gate) + (cap,)
 
 
 # ------------------------------------------------------------ phases 21-25 --
@@ -1746,6 +1747,11 @@ AUG_EXACT_TOL, AUG_SHIPPED_TOL = 1e-6, 1e-3
 # train-nerf before nerf-sfm, cut from the CLI's 10000 steps to fit the script
 # (phase 18 measures training at 1000 steps): the recipe's 4096 rays x 48 + 16.
 NERF_SFM_TRAIN_STEPS = 300
+# nerf-sfm's renders at one sample a pixel, cut from the CLI's spp 2 for time
+# (the spp 2 render took 45.70 s of phase 23's 71.5 s on an H100 80GB HBM3);
+# phase 23's gate (points >= half of phase 22's) and its reference do not
+# depend on it.
+NERF_SFM_SPP = 1
 # Phase 25: the JAX package's fused closed loop over ITS model of the same rig,
 # augmented as the shipped build (scripts_dev/fused_mesh_rebuilt_jax_chains.py,
 # CPU, UNet bf16, the six perturbed cold starts): chains 2, 2, 7, 7, 2, 7 of
@@ -1894,7 +1900,8 @@ def phase_nerf_sfm(work, ref_points: int):
     split = {}
     t0 = time.perf_counter()
     with sfm_stage_split(split, "nerf"):
-        cli.main(["nerf-sfm", "--object_path", str(work), "--spp", "2"] + ([] if has_h5 else ["--no_h5"]))
+        cli.main(["nerf-sfm", "--object_path", str(work), "--spp", str(NERF_SFM_SPP)]
+                 + ([] if has_h5 else ["--no_h5"]))
     t_sfm = time.perf_counter() - t0
     launches = {k: fused_mlp.launch_count(k) for k in (fused_mlp.K1, fused_mlp.K2)}
     nerf = SceneModel.load(paths["nerf_sfm"])
@@ -1903,7 +1910,8 @@ def phase_nerf_sfm(work, ref_points: int):
     tf_err = max(float(np.abs(np.asarray(getattr(tf, f)) - np.asarray(getattr(shipped, f))).max())
                  for f in ("centroid", "avglen", "R", "totp", "up"))
     log(f"[nerf-sfm] train-nerf {NERF_SFM_TRAIN_STEPS} steps (cut from 10000; 4096 rays x 48 + 16) {t_train:.1f} s; "
-        f"nerf-sfm (spp 2, h5 files {'written' if has_h5 else 'off: this machine has no h5py'}) {t_sfm:.1f} s: "
+        f"nerf-sfm (spp {NERF_SFM_SPP}, cut from the CLI's 2; h5 files "
+        f"{'written' if has_h5 else 'off: this machine has no h5py'}) {t_sfm:.1f} s: "
         + ", ".join(f"{k} {v:.2f} s" for k, v in split.items())
         + f"; {len(nerf.image_ids)} views, {len(nerf.point_ids)} points (phase 22: {ref_points}), mean reprojection "
         f"error {nerf.point_errors.mean():.3f} px; nerf2sfm.pkl vs the shipped one {tf_err:.2e}; launches K1 "
@@ -3590,9 +3598,10 @@ DESC_SCENES, DESC_STEPS, DESC_LOG_EVERY, DESC_HOLDOUT_PAIRS = 16, 600, 100, 32
 # lie within the host path's spread (max - min over the seeds) of their
 # median. Measured (H100 80GB HBM3, 700 W): at 300 steps host 9.2382,
 # 8.9969, 9.2643, device 9.2381; at 150, host 9.2534, 9.2566, 9.2741, device
-# 9.2531; untrained 9.59-10.48.
+# 9.2531; untrained 9.59-10.48. Cut to 100 steps for time: the logged NLLs
+# sit on the plateau from step 25.
 PLANE_STEPS, PLANE_LOG_EVERY = 100, 10
-MBANK_SCENES, BANK_STEPS, BANK_LOG_EVERY, BANK_CHUNK = 4, 150, 25, 10
+MBANK_SCENES, BANK_STEPS, BANK_LOG_EVERY, BANK_CHUNK = 4, 100, 25, 10
 # Phase 44: SuperPoint's two trainers at their recipes' widths. The MagicPoint
 # trainer (scripts_dev/train_superpoint_run.py: SPTrainConfig, batch 8 + 8
 # bank crops, 120 px, grid 3) on a texture label bank of SP_TEX_SCENES of its
@@ -3614,15 +3623,16 @@ SP_REP_TOL, SP_COUNT_REL, SP_TERM_RTOL = 0.02, 0.03, 1e-3
 SP_JAX = REPO / "scripts_dev" / "superpoint_jax.npz"
 
 
-def same_basin_gaps(out: dict, ref, B: int) -> list:
-    """Per video of a run at B, over its frames before JAX's first miss: the
-    largest rotation (deg) and relative cost gap to JAX's frame, and whether
-    the port counts every one of those frames a success."""
+def same_basin_gaps(out: dict, ref, B: int, n_frames: int = VIDEO_FRAMES) -> list:
+    """Per video of a run at B over ``n_frames`` frames, over its frames
+    before JAX's first miss: the largest rotation (deg) and relative cost gap
+    to JAX's frame, and whether the port counts every one of those frames a
+    success."""
     ok = video_success(out["cost"])
     gaps = []
     for b in range(B):
-        miss = np.flatnonzero(~ref["success"][:, b])
-        n = int(miss[0]) if miss.size else VIDEO_FRAMES
+        miss = np.flatnonzero(~ref["success"][:n_frames, b])
+        n = int(miss[0]) if miss.size else n_frames
         gaps.append({"frames": n,
                      "rot": max(rot_err_deg(out["R"][k, b], ref["R"][k, b]) for k in range(n)),
                      "cost": float(np.max(np.abs(out["cost"][:n, b] - ref["cost"][:n, b]) / ref["cost"][:n, b])),
@@ -4189,6 +4199,340 @@ def phase_batch_and_trainers(device, work: Path, assets, ab_patch: dict) -> dict
     return {"video": video, "descriptor": descriptor, "matcher": matcher, "superpoint": superpoint}
 
 
+# ---------------------------------------------------------------- phase 45 --
+# Scale-out over several cards (parallel/mesh.py, parallel/video.py), one
+# process a card.
+# (a) The production path at this machine's world: NCCL over
+#     torch.cuda.device_count() ranks (one rank, in this process, on a
+#     one-card machine). One sharded step of the hash-grid NeRF at full width
+#     (NGPField defaults) from init_field(1) on phase 17's capture with phase
+#     18's first batch (4096 rays x 48 + 16 samples), held to the one-process
+#     step on the card: the loss within SCALE_LOSS_REL relative, each
+#     gradient (Adam's first moment / (1 - b1)) within SCALE_GRAD_REL of its
+#     leaf's largest entry; the sharded step's steps/s over SCALE_TIMED_STEPS
+#     more steps. Then track-batch --devices 0 through the CLI over phase
+#     41's object folder and queries, held to phase 41's track-batch to the bit.
+# (b) A test harness, never the production path: two ranks sharing the one
+#     card, over a gloo group built explicitly over CUDA tensors (NCCL refuses
+#     two ranks on one device, and a one-card machine has no second card). The
+#     step at (dp, tp) = (2, 1) and (1, 2) against the one-process step at
+#     (a)'s tolerances; SCALE_TRAIN_STEPS steps of train(mesh=(1, 2)) at
+#     phase 18's recipe, every step logged, each logged loss within
+#     SCALE_LOSS_REL of the one-process train()'s on the same steps (run
+#     here), and the last below the first; videos 0-3 of phase 41 over its
+#     first SCALE_FRAMES frames, 2 a rank, each held to JAX's stored run by
+#     phase 41's per-frame gates, K1 counted in each rank.
+#     Phase 18's own gate (the loss halves) does not fit 30 steps: the
+#     recipe's schedule decays the rate 100-fold over n_steps, and the
+#     one-process trainer's loss over these 30 steps goes 0.0667 -> 0.0433
+#     (measured, H100 80GB HBM3, 700 W; it is the same in every run, and the
+#     mesh run's within 8.5e-8 of it); with a 300-step schedule it halves by
+#     step 40.
+SCALE_LOSS_REL, SCALE_GRAD_REL = 1e-5, 5e-5
+SCALE_TRAIN_STEPS, SCALE_TIMED_STEPS, SCALE_FRAMES, SCALE_VIDEOS = 30, 10, 10, 4
+SCALE_BATCH, SCALE_COARSE, SCALE_FINE = 4096, 48, 16  # phase 18's recipe
+
+
+def scale_train_cfg():
+    """(b)'s training run: phase 18's recipe over SCALE_TRAIN_STEPS steps,
+    every step logged."""
+    from pixtrack_tpu_torch.nerf.train import TrainConfig
+
+    return TrainConfig(n_steps=SCALE_TRAIN_STEPS, batch_rays=SCALE_BATCH, n_coarse=SCALE_COARSE,
+                       n_fine=SCALE_FINE, log_every=1)
+
+
+def scale_pool(ds, device):
+    """Phase 18's ray pool of the capture on ``device``."""
+    from pixtrack_tpu_torch.nerf.train import TrainConfig, ray_pool
+
+    cfg = TrainConfig()
+    return ray_pool(ds, cfg.ray_pool_cap, cfg.background, 0, device)
+
+
+def scale_batch(pool, device):
+    """Phase 18's first batch (the first draw of a generator seeded 0 on the
+    device) and that generator, whose next draws are the render's noise."""
+    import torch
+
+    from pixtrack_tpu_torch.nerf.train import batch_indices
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    idx = batch_indices(gen, pool[0].shape[0], SCALE_BATCH)
+    return tuple(p[idx] for p in pool), gen
+
+
+def scale_grads(field, opt, mesh=None) -> dict:
+    """The last step's gradient of each parameter, read as Adam's first
+    moment / (1 - b1); a sharded table's gathered over tp."""
+    from pixtrack_tpu_torch.parallel.mesh import gather_over_tp
+
+    out = {}
+    for (name, _), m in zip(field.named_parameters(), opt.mu):
+        g = m / (1.0 - opt.b1)
+        out[name] = gather_over_tp(g, field, mesh) if mesh is not None and name == "encoding.tables" else g
+    return out
+
+
+def grad_gaps(grads: dict, ref: dict) -> dict:
+    """Each leaf's largest gap over its largest entry in ``ref``."""
+    return {k: float((grads[k] - v).abs().max() / v.abs().max().clamp_min(1e-30)) for k, v in ref.items()}
+
+
+def scale_one_process(pool, aabb, device):
+    """The one-process step on the card (nerf/train.py's loss, Adam at the
+    sharded step's default rate) from init_field(1): (loss, gradients)."""
+    from pixtrack_tpu_torch.nerf.field import init_field
+    from pixtrack_tpu_torch.nerf.optim import Adam
+    from pixtrack_tpu_torch.nerf.train import TrainConfig, make_loss_fn
+
+    field = init_field(1, device=device)
+    opt = Adam(field.parameters(), lambda k: 1e-2, b1=0.9, b2=0.99, eps=1e-15)
+    (o, d, rgb), gen = scale_batch(pool, device)
+    cfg = TrainConfig(batch_rays=SCALE_BATCH, n_coarse=SCALE_COARSE, n_fine=SCALE_FINE)
+    loss = make_loss_fn(field, cfg, aabb)(o, d, rgb, gen)
+    loss.backward()
+    opt.step()
+    return float(loss.detach()), scale_grads(field, opt)
+
+
+def scale_sharded(pool, aabb, mesh, timed: int = 0):
+    """One sharded step over ``mesh`` from init_field(1) on phase 18's first
+    batch, then ``timed`` more steps on the generator's next batches, timed:
+    (the first step's loss, its gradients, steps/s or None)."""
+    import torch
+
+    from pixtrack_tpu_torch.nerf.field import init_field
+    from pixtrack_tpu_torch.nerf.train import batch_indices
+    from pixtrack_tpu_torch.parallel import sharded_nerf_train_step
+
+    field = init_field(1, device=mesh.device)
+    step, opt = sharded_nerf_train_step(field, mesh, aabb, n_coarse=SCALE_COARSE, n_fine=SCALE_FINE)
+    (o, d, rgb), gen = scale_batch(pool, mesh.device)
+    loss = float(step(o, d, rgb, gen))
+    grads = scale_grads(field, opt, mesh)
+    sps = None
+    if timed:
+        torch.cuda.synchronize(mesh.device)
+        t0 = time.perf_counter()
+        for _ in range(timed):
+            idx = batch_indices(gen, pool[0].shape[0], SCALE_BATCH)
+            last = step(pool[0][idx], pool[1][idx], pool[2][idx], gen)
+        float(last)
+        sps = timed / (time.perf_counter() - t0)
+    return loss, grads, sps
+
+
+def scale_nccl_rank(ds, aabb, world: int) -> dict:
+    """Phase 45 (a) in one rank of the production layout (NCCL, rank r on
+    cuda:r, dp = world): the sharded step against the one-process step (rank
+    0), and its steps/s."""
+    import torch
+
+    from pixtrack_tpu_torch.parallel import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh(world, 1, "cuda")
+    pool = scale_pool(ds, mesh.device)
+    ref = scale_one_process(pool, aabb, mesh.device) if mesh.rank == 0 else None
+    loss, grads, sps = scale_sharded(pool, aabb, mesh, timed=SCALE_TIMED_STEPS)
+    out = {"world": mesh.world, "backend": mesh.backend, "loss": loss, "sps": sps}
+    if ref is not None:
+        out.update(ref_loss=ref[0], gaps=grad_gaps(grads, ref[1]))
+    return out
+
+
+def scale_harness_rank(ds, aabb, frames, R0, t0) -> dict:
+    """Phase 45 (b) in one of two ranks sharing cuda:0 over gloo (the test
+    harness): the steps at (2, 1) and (1, 2) against the one-process step
+    (rank 0), train(mesh=(1, 2)), and this rank's share of the videos."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from pixtrack_tpu_torch.align.lm import AlignConfig
+    from pixtrack_tpu_torch.nerf import fused_mlp
+    from pixtrack_tpu_torch.nerf.train import train
+    from pixtrack_tpu_torch.parallel import make_mesh, make_production_video_tracker, track_video_batch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev, rank = torch.device("cuda:0"), int(os.environ["RANK"])
+    t_start = time.perf_counter()
+    pool = scale_pool(ds, dev)
+    ref = scale_one_process(pool, aabb, dev) if rank == 0 else None
+    steps = {}
+    for tp in (1, 2):
+        mesh = make_mesh(2, tp, "cuda", shared_device=dev)
+        loss, grads, _ = scale_sharded(pool, aabb, mesh)
+        if ref is not None:
+            steps[mesh.dp, mesh.tp] = {"loss": loss, "gaps": grad_gaps(grads, ref[1])}
+        del grads
+    del pool
+    t_steps = time.perf_counter()
+    _, info = train(ds, aabb, scale_train_cfg(), seed=0, mesh=make_mesh(2, 2, "cuda", shared_device=dev))
+    t_train = time.perf_counter()
+
+    mesh = make_mesh(2, 1, "cuda", shared_device=dev)
+    a = mesh_assets(dev, n_frames=0)
+    a.testbed.n_coarse, a.testbed.n_fine = 96, 0
+    run = make_production_video_tracker(a.testbed, a.n2s, a.extractor, a.scene, a.camera, reference_scale=0.5,
+                                        align_cfg=AlignConfig(num_iters=VIDEO_ITERS))
+    video = torch.as_tensor(frames, device=dev).float() / 255.0
+    videos = video[None].expand(len(R0), *video.shape)
+    per = len(R0) // mesh.dp
+    mine = slice(mesh.dp_rank * per, (mesh.dp_rank + 1) * per)
+    R0t, t0t = torch.as_tensor(R0, device=dev), torch.as_tensor(t0, device=dev)
+    run(R0t[mine], t0t[mine], videos[mine, 0])  # warm-up step
+    torch.cuda.synchronize(dev)
+    fused_mlp.reset_launch_counts()
+    t_video = time.perf_counter()
+    out = track_video_batch(run, R0, t0, videos, mesh=mesh)
+    wall = time.perf_counter() - t_video
+    k1 = fused_mlp.launch_count(fused_mlp.K1)
+    # this rank's K1 launches and frames/s, to rank 0 (CPU tensors over the gloo group)
+    stats = torch.zeros(2, 2)
+    stats[mesh.rank] = torch.tensor([float(k1), per * video.shape[0] / wall])
+    dist.all_reduce(stats)
+    return {"steps": steps, "history": info["history"], "train_sps": SCALE_TRAIN_STEPS / info["seconds"],
+            "video": out, "k1": stats[:, 0].tolist(), "fps": stats[:, 1].tolist(), "backend": mesh.backend,
+            "seconds": {"start and steps": t_steps - t_start, "train": t_train - t_steps,
+                        "videos": time.perf_counter() - t_train}}
+
+
+def in_background(fn):
+    """Run ``fn()`` in a thread; call the returned function for its result
+    (or its error)."""
+    import threading
+
+    box = {}
+
+    def run():
+        try:
+            box["out"] = fn()
+        except BaseException as e:  # raised by result()
+            box["err"] = e
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+
+    def result():
+        thread.join()
+        if "err" in box:
+            raise box["err"]
+        return box["out"]
+
+    return result
+
+
+def phase_scaleout(device, work: Path, cap, assets, smi: str) -> dict:
+    """Phase 45: (a) and (b) above; (b)'s ranks start in the background
+    while (a) runs here."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from pixtrack_tpu_torch.nerf import fused_mlp
+    from pixtrack_tpu_torch.nerf.train import train
+    from pixtrack_tpu_torch.parallel.mesh import launch
+
+    t_phase = time.perf_counter()
+    ref = np.load(VIDEO_JAX)
+    frames = np.stack([img for _, img in assets.frames[:SCALE_FRAMES]])
+    R0, t0 = ref["R0"][:SCALE_VIDEOS], ref["t0"][:SCALE_VIDEOS]
+    harness = in_background(lambda: launch(scale_harness_rank, 2, cap.ds, cap.aabb, frames, R0, t0, threads=2,
+                                           join_timeout=600.0))
+
+    world = torch.cuda.device_count()
+    if world == 1:
+        try:
+            a = scale_nccl_rank(cap.ds, cap.aabb, 1)
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+    else:
+        a = launch(scale_nccl_rank, world, cap.ds, cap.aabb, world, join_timeout=600.0)
+    worst = max(a["gaps"].values())
+    log(f"[scale-out (a)] {smi}: production layout, world {a['world']} over {a['backend']} (one rank a card; "
+        f"this machine has {world}): one sharded step at full width, phase 18's batch, loss {a['loss']:.7f} "
+        f"against the one-process step's {a['ref_loss']:.7f} ({abs(a['loss'] - a['ref_loss']) / a['ref_loss']:.1e} "
+        f"relative); gradients' largest gap {worst:.1e} of the leaf's largest entry ("
+        + ", ".join(f"{k} {v:.1e}" for k, v in a["gaps"].items()) + f"); {a['sps']:.2f} steps/s "
+        f"over {SCALE_TIMED_STEPS} steps")
+    check(a["backend"] == "nccl" and a["world"] == world, f"scale-out (a): {a['backend']} over {a['world']} ranks")
+    check(abs(a["loss"] - a["ref_loss"]) <= SCALE_LOSS_REL * abs(a["ref_loss"]) and worst <= SCALE_GRAD_REL,
+          f"scale-out (a): loss {a['loss']} against {a['ref_loss']}, gradient gaps {a['gaps']}")
+
+    # the one-process train() over (b)'s 30 steps, (b)'s reference
+    _, one = train(cap.ds, cap.aabb, scale_train_cfg(), seed=0, device=device)
+    one = [v for _, v in one["history"]]
+
+    # track-batch --devices 0 (every visible card) through the CLI, held to phase 41's track-batch
+    fused_mlp.reset_launch_counts()
+    t_cli = time.perf_counter()
+    out_dir = work / "track_batch_devices0"
+    summary = json.loads(capture_cli(["track-batch", "--object_path", str(work), "--query",
+                                      *[str(work / "queries")] * TRACK_BATCH_VIDEOS, "--out_dir", str(out_dir),
+                                      "--devices", "0"]).strip().splitlines()[-1])
+    t_cli = time.perf_counter() - t_cli
+    cli_k1 = fused_mlp.launch_count(fused_mlp.K1)
+    diff = 0.0
+    for v in range(TRACK_BATCH_VIDEOS):
+        with open(out_dir / f"poses_{v:02d}.pkl", "rb") as f, \
+                open(work / "track_batch_out" / f"poses_{v:02d}.pkl", "rb") as g:
+            mine, theirs = pickle.load(f), pickle.load(g)
+        check(sorted(mine) == sorted(theirs), "scale-out (a): track-batch --devices 0 wrote other frames")
+        diff = max([diff] + [float(np.abs(mine[n]["T_refined"] - theirs[n]["T_refined"]).max()) for n in mine])
+    log(f"[scale-out (a)] track-batch --devices 0: {summary}, {t_cli:.1f} s; poses against phase 41's track-batch: "
+        f"max |dT| {diff:.1e}; K1 launches {cli_k1} (the baked hash field renders plain)")
+    check(summary["mesh"] == {"dp": world, "tp": 1} and diff == 0.0,
+          f"scale-out (a): track-batch --devices 0: {summary}, {diff:.1e} from phase 41's")
+
+    b = harness()
+    log(f"[scale-out (b)] {smi}: TEST HARNESS, not the production path: 2 ranks sharing cuda:0 over an explicitly "
+        f"built {b['backend']} group over CUDA tensors (NCCL refuses two ranks on one device; this machine has "
+        f"{world} card(s)); rank time split (s): " + ", ".join(f"{k} {v:.1f}" for k, v in b["seconds"].items()))
+    misses = []
+    for layout, r in b["steps"].items():
+        gap = max(r["gaps"].values())
+        rel = abs(r["loss"] - a["ref_loss"]) / a["ref_loss"]
+        log(f"[scale-out (b)] (dp, tp) = {layout}: loss {r['loss']:.7f} ({rel:.1e} from the one-process step's), "
+            f"gradients' largest gap {gap:.1e} of the leaf's largest entry")
+        if not (rel <= SCALE_LOSS_REL and gap <= SCALE_GRAD_REL):
+            misses.append(f"step at {layout}: loss {rel:.1e}, gradients {gap:.1e}")
+    hist = [v for _, v in b["history"]]
+    train_gaps = [abs(h - o) / o for h, o in zip(hist, one)]
+    log(f"[scale-out (b)] train(mesh=(1, 2)) {SCALE_TRAIN_STEPS} steps at {b['train_sps']:.2f} steps/s (2 ranks on "
+        f"one card): loss {[round(v, 5) for v in hist]}; against the one-process train() on the same steps: largest "
+        f"gap {max(train_gaps):.1e} relative (<= {SCALE_LOSS_REL:g}); first -> last {hist[0]:.5f} -> {hist[-1]:.5f} "
+        f"(one process {one[0]:.5f} -> {one[-1]:.5f}; the rate decays 100-fold over the 30 steps)")
+    if not (all(np.isfinite(hist)) and len(hist) == len(one) == SCALE_TRAIN_STEPS
+            and max(train_gaps) <= SCALE_LOSS_REL and hist[-1] < hist[0]):
+        misses.append(f"train(mesh=(1, 2)): loss {hist[0]} -> {hist[-1]}, {max(train_gaps):.1e} from the one-process "
+                      f"run")
+    out = b["video"]
+    gaps = same_basin_gaps(out, ref, SCALE_VIDEOS, n_frames=SCALE_FRAMES)
+    ok = video_success(out["cost"]).sum(0)
+    log(f"[scale-out (b)] videos 0-{SCALE_VIDEOS - 1} of phase 41, {SCALE_FRAMES} frames, "
+        f"{SCALE_VIDEOS // 2} a rank: K1 launches per rank {[int(k) for k in b['k1']]}, frames/s per rank "
+        f"{[round(f, 2) for f in b['fps']]}; successes {ok.tolist()}; the frames before JAX's first miss "
+        f"({[g['frames'] for g in gaps]} a video) against JAX's: pose gaps {[round(g['rot'], 3) for g in gaps]} "
+        f"deg (<= {VIDEO_POSE_DEG}), cost gaps {[round(g['cost'], 6) for g in gaps]} relative "
+        f"(<= {VIDEO_COST_REL:g}), each a success {[g['ok'] for g in gaps]}")
+    misses += [f"video {v}: {g}" for v, g in enumerate(gaps)
+               if not (g["rot"] <= VIDEO_POSE_DEG and g["cost"] <= VIDEO_COST_REL and g["ok"])]
+    if not (out["R"].shape == (SCALE_FRAMES, SCALE_VIDEOS, 3, 3) and np.isfinite(out["cost"]).all()):
+        misses.append(f"videos: shape {out['R'].shape}, finite {np.isfinite(out['cost']).all()}")
+    if [int(k) for k in b["k1"]] != [SCALE_FRAMES] * 2:
+        misses.append(f"K1 launched {b['k1']} times per rank")
+    check(not misses, "scale-out (b): " + "; ".join(misses))
+    wall = time.perf_counter() - t_phase
+    return {"k1": int(sum(b["k1"])) + cli_k1, "a": a, "b": b, "seconds": wall}
+
+
 # -------------------------------------------------------------------- main --
 def main() -> int:
     try:
@@ -4304,7 +4648,7 @@ def main() -> int:
     timed_phase("phase 16, the optimizer trace", phase_debug_trace, device, assets)
 
     # phases 17-20: the asset path, the student's renders counted
-    asset_launches, student_k1_err, student_staged_err, _ = phase_assets(device)
+    asset_launches, student_k1_err, student_staged_err, _, cap = phase_assets(device)
 
     import tempfile
 
@@ -4323,6 +4667,10 @@ def main() -> int:
         # phases 41-44: the video batch over the mesh world (K1 counted) and track-batch over phases 21-24's
         # object folder; the dense descriptor, the matcher and SuperPoint trained on the card (no kernel)
         batch = phase_batch_and_trainers(device, Path(tmp), assets, later["learned"]["ab"]["patch"])
+
+        # phase 45: scale-out, NCCL at this machine's world and two ranks sharing the card over gloo (the
+        # harness), K1 counted in each rank
+        scale = timed_phase("phase 45, scale-out", phase_scaleout, device, Path(tmp), cap, assets, smi)
     log("[launches] phase 12 (jittered renders, spp=4): K2 "
         + ", ".join(f"{n} at {w}x{h}" for (w, h), n in jitter_launches.items()) + "; phases 13-15 (K1, K2): "
         + ", ".join(f"{name} {n[fused_mlp.K1]}, {n[fused_mlp.K2]}" for name, n in variant_launches.items()))
@@ -4334,7 +4682,7 @@ def main() -> int:
             "route": "cuda",
             "source": "pixtrack_tpu_torch/csrc/march_render.cu",
             "replaces": "pixtrack_tpu/nerf/fused_mlp.py:300",
-            "launches": fused_launches[fused_mlp.K1] + unet["k1"] + batch["video"]["launches"],
+            "launches": fused_launches[fused_mlp.K1] + unet["k1"] + batch["video"]["launches"] + scale["k1"],
             "launches_by_path": {"fused frames": fused_launches[fused_mlp.K1],
                                  "open loop with the card-trained UNet (phase 37)": unet["k1"],
                                  **{name: n[fused_mlp.K1] for name, n in variant_launches.items()},
@@ -4343,7 +4691,8 @@ def main() -> int:
                                  "fused frames over the card-built model (phase 25)": rebuilt_k1,
                                  "open loop over the refined model (phase 29)": refined["k1"],
                                  "open loops over the unposed models (phase 33)": unposed["k1"],
-                                 "video batch (phase 41)": batch["video"]["launches"]},
+                                 "video batch (phase 41)": batch["video"]["launches"],
+                                 "scale-out, videos over 2 ranks on the card (phase 45)": scale["k1"]},
             "max_abs_err": max(max(r["err"] for r in k1), student_k1_err, batch["video"]["k1"]["err"]),
             "ms": main_shape["ms"],
             "plain_ms": main_shape["plain_ms"],
@@ -4389,7 +4738,10 @@ def main() -> int:
         f"{batch['video']['k1']['bound_ms']:.3f}); descriptor training {batch['descriptor']['steps_per_s']:.2f} "
         f"steps/s, matcher plane pairs {batch['matcher']['plane_sps']:.2f}, bank host {batch['matcher']['host_sps']:.2f}, "
         f"bank device-resident {batch['matcher']['device_sps']:.2f} steps/s; SuperPoint MagicPoint "
-        f"{batch['superpoint']['magic_sps']:.2f}, dense {batch['superpoint']['dense_sps']:.2f} steps/s")
+        f"{batch['superpoint']['magic_sps']:.2f}, dense {batch['superpoint']['dense_sps']:.2f} steps/s; scale-out: "
+        f"NeRF {scale['a']['sps']:.2f} steps/s at world {scale['a']['world']} ({scale['a']['backend']}), "
+        f"{scale['b']['train_sps']:.2f} at 2 ranks sharing the card (gloo harness), the video batch "
+        f"{[round(f, 2) for f in scale['b']['fps']]} frames/s per shared rank, phase 45 {scale['seconds']:.1f} s")
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                             "count": torch.cuda.device_count()}}))
     return 0

@@ -112,6 +112,15 @@ class HashEncoding(nn.Module):
         self.register_buffer("_res", res.reshape(-1, 1, 1), persistent=False)
         self.register_buffer("_dense", torch.as_tensor(self.dense).reshape(-1, 1), persistent=False)
 
+    def _gather(self, slots: torch.Tensor) -> torch.Tensor:
+        """The table entries of the corners' slots (L, 8, N): (F, L, 8, N)."""
+        L, F, T = self.tables.shape
+        with torch.no_grad():
+            # the flat index of feature f: l*F*T + f*T + slot
+            idx = slots + torch.arange(L, device=slots.device)[:, None, None] * (F * T)
+            idx = idx[None] + (torch.arange(F, device=slots.device) * T).reshape(F, 1, 1, 1)
+        return self.tables.reshape(-1)[idx.reshape(-1)].reshape(F, L, *slots.shape[1:])
+
     def forward(self, xT: torch.Tensor) -> torch.Tensor:
         L, F = self.n_levels, self.features_per_level
         T = 1 << self.log2_table_size
@@ -122,16 +131,13 @@ class HashEncoding(nn.Module):
         with torch.no_grad():
             x0i = x0.long()
             side = self._res.long()[:, 0] + 1  # (L, 1)
-            level = torch.arange(L, device=xT.device)[:, None] * (F * T)
-            idx = []
+            slots = []
             for ci, cj, ck in _CORNERS:
                 cx, cy, cz = x0i[:, 0] + ci, x0i[:, 1] + cj, x0i[:, 2] + ck
                 dense = cx + side * (cy + side * cz)
-                idx.append(torch.where(self._dense, dense, spatial_hash(cx, cy, cz, T)) + level)
-            idx = torch.stack(idx, dim=1)  # (L, 8, N)
-            # the flat index of feature f: l*F*T + f*T + slot
-            idx = idx[None] + (torch.arange(F, device=xT.device) * T).reshape(F, 1, 1, 1)
-        vals = self.tables.reshape(-1)[idx.reshape(-1)].reshape(F, L, 8, N)
+                slots.append(torch.where(self._dense, dense, spatial_hash(cx, cy, cz, T)))
+            slots = torch.stack(slots, dim=1)  # (L, 8, N), each in [0, T)
+        vals = self._gather(slots)
         acc = None
         for c, (ci, cj, ck) in enumerate(_CORNERS):
             wx = frac[:, 0] if ci else 1.0 - frac[:, 0]

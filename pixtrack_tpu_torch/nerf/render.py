@@ -267,21 +267,29 @@ def _render_staged(field, o_g, d_g, t_near, t_far, cfg: RenderConfig, noise=(Non
 def render_rays(
     field, origins_nerf, dirs_nerf, aabb, cfg: RenderConfig,
     sphere: Optional[torch.Tensor] = None, generator: Optional[torch.Generator] = None,
+    noise: Optional[tuple] = None,
 ):
     """Render NeRF-space rays of any field with ``field_T``: a
     ``DistilledField`` with ``cfg.fused`` through K1 when ``cfg.n_fine ==
     0`` and the samples are not jittered (``cfg.perturb`` with a
-    ``generator``); everything else through the staged render,
+    ``generator`` or ``noise``); everything else through the staged render,
     ``cfg.chunk`` rays at a time, each chunk drawing its noise from
-    ``generator`` in turn. Returns dict(rgb, alpha, depth)."""
+    ``generator`` in turn. ``noise``, ``_draw_noise``'s pair for all the
+    rays, is used instead of drawing. Returns dict(rgb, alpha, depth)."""
     o_g, d_g, t_near, t_far = march_rays(origins_nerf, dirs_nerf, aabb, sphere)
-    if _uses_kernels(field, cfg) and cfg.n_fine == 0 and not (cfg.perturb and generator is not None):
+    jittered = cfg.perturb and (generator is not None or noise is not None)
+    if _uses_kernels(field, cfg) and cfg.n_fine == 0 and not jittered:
         return fused_march_render(field, o_g, d_g, t_near, t_far, cfg.n_coarse,
                                   cfg.min_transmittance, cfg.density_scale)
+
+    def chunk_noise(s):
+        if noise is None:
+            return _draw_noise(min(cfg.chunk, o_g.shape[0] - s), cfg, generator, o_g.device)
+        return tuple(None if a is None else a[s : s + cfg.chunk] for a in noise)
+
     parts = [
         _render_staged(field, o_g[s : s + cfg.chunk], d_g[s : s + cfg.chunk],
-                       t_near[s : s + cfg.chunk], t_far[s : s + cfg.chunk], cfg,
-                       _draw_noise(min(cfg.chunk, o_g.shape[0] - s), cfg, generator, o_g.device))
+                       t_near[s : s + cfg.chunk], t_far[s : s + cfg.chunk], cfg, chunk_noise(s))
         for s in range(0, o_g.shape[0], cfg.chunk)
     ]
     rgb, alpha, depth = (torch.cat(p) for p in zip(*parts))

@@ -7,7 +7,10 @@ through the staged render, and takes one Adam step on the L2 photometric
 loss. The loop is the JAX package's single-step one: exactly ``n_steps``
 steps, history and ``callback(done, loss, field)`` at multiples of
 ``log_every``. Batch indices and render noise come from one device
-``torch.Generator`` seeded from ``seed``.
+``torch.Generator`` seeded from ``seed``. Over a (dp, tp) mesh
+(``parallel/mesh.py``) the same loop runs in every rank: each draws the
+global batch and its noise from the same generator, and renders its ``dp``
+slice with its ``tp`` shard of the hash table.
 """
 
 from __future__ import annotations
@@ -83,31 +86,60 @@ def make_loss_fn(field: NGPField, cfg: TrainConfig, aabb):
 
 
 def train(dataset, aabb, cfg: TrainConfig = TrainConfig(), field: Optional[NGPField] = None, seed: int = 0,
-          callback: Optional[Callable] = None, device=None):
+          callback: Optional[Callable] = None, device=None, mesh=None):
     """Train ``field`` (trained in place; by default ``init_field(seed + 1)``
     on ``device``, None the CUDA card) on a NerfDataset. Returns (field,
-    dict(history=[(step, loss)], seconds))."""
+    dict(history=[(step, loss)], seconds)).
+
+    ``mesh``: a ``parallel.mesh.Mesh``; every rank calls this with the same
+    arguments and its field on ``mesh.device``. The field's table is
+    sharded over ``tp`` (rank 0's parameters), the batch over ``dp``
+    (``cfg.batch_rays`` must divide by dp). ``callback`` and the history
+    run on rank 0, the callback with a gathered copy of the field; the
+    field returned has its table gathered on every rank."""
+    if mesh is not None:
+        from pixtrack_tpu_torch.parallel.mesh import gather_field, sharded_nerf_train_step, unshard_field_params
+
+        assert cfg.batch_rays % mesh.dp == 0, f"batch_rays {cfg.batch_rays} must divide dp={mesh.dp}"
+        device = mesh.device
     if field is None:
         field = init_field(seed + 1, device=resolve(device))
     origins, dirs, rgbs = ray_pool(dataset, cfg.ray_pool_cap, cfg.background, seed, field.device)
     n_rays = origins.shape[0]
-    optimizer = Adam(field.parameters(), lambda k: exponential_decay(cfg.lr, cfg.n_steps, cfg.lr_final, k),
-                     b1=0.9, b2=0.99, eps=1e-15)
-    loss_fn = make_loss_fn(field, cfg, aabb)
+
+    def adam(params):
+        return Adam(params, lambda k: exponential_decay(cfg.lr, cfg.n_steps, cfg.lr_final, k),
+                    b1=0.9, b2=0.99, eps=1e-15)
+
+    if mesh is None:
+        optimizer = adam(field.parameters())
+        loss_fn = make_loss_fn(field, cfg, aabb)
+    else:
+        step_fn, _ = sharded_nerf_train_step(field, mesh, aabb, adam, cfg.n_coarse, cfg.n_fine,
+                                             1.0 if cfg.background == "white" else 0.0)
+    lead = mesh is None or mesh.rank == 0
     generator = torch.Generator(device=field.device).manual_seed(seed)
 
     history = []
     t0 = time.perf_counter()
     for done in range(1, cfg.n_steps + 1):
         idx = batch_indices(generator, n_rays, cfg.batch_rays)
-        loss = loss_fn(origins[idx], dirs[idx], rgbs[idx], generator)
-        loss.backward()
-        optimizer.step()
+        if mesh is None:
+            loss = loss_fn(origins[idx], dirs[idx], rgbs[idx], generator)
+            loss.backward()
+            optimizer.step()
+        else:
+            loss = step_fn(origins[idx], dirs[idx], rgbs[idx], generator)
         if done % cfg.log_every == 0:
             lv = loss.item()
-            history.append((done, lv))
+            if lead:
+                history.append((done, lv))
             if callback:
-                callback(done, lv, field)
+                view = field if mesh is None else gather_field(field, mesh)
+                if lead:
+                    callback(done, lv, view)
+    if mesh is not None:
+        unshard_field_params(field, mesh)
     if field.device.type == "cuda":
         torch.cuda.synchronize(field.device)
     return field, {"history": history, "seconds": time.perf_counter() - t0}

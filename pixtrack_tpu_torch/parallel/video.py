@@ -16,7 +16,11 @@ On one card the ``dp`` axis is a leading batch axis of the tensors:
   count) take the batch as one.
 
 The caller gives each video's initial pose; ``track_video_batch`` chains
-the steps over time, each video from its own previous estimate.
+the steps over time, each video from its own previous estimate. Over
+several cards (``mesh``, ``parallel/mesh.py``) every rank runs its own
+``VideoStep`` on its card for its B / dp videos, its references still in
+one launch of K1 a step, and the ranks' results are broadcast to every
+rank in the one-process order.
 """
 
 from __future__ import annotations
@@ -158,21 +162,49 @@ def make_production_video_tracker(
     )
 
 
-def track_video_batch(run: VideoStep, R0, t0, videos) -> dict:
+def track_video_batch(run: VideoStep, R0, t0, videos, mesh=None) -> dict:
     """Chain the batched step over time for B videos in lockstep.
 
     ``videos``: (B, T, H, W, 3) float in [0, 1] (a shorter video padded by
     repeating its last frame), numpy or a tensor; uploaded once. Each
     timestep refines every video's frame k from its own frame k-1 estimate;
     one host sync at the end. Returns numpy arrays stacked (T, B, ...): R,
-    t, cost, num_iters."""
+    t, cost, num_iters.
+
+    ``mesh``: every rank of its ``dp`` group calls this with the same
+    arguments and its ``run`` on ``mesh.device``; B is padded to a multiple
+    of dp by repeating the last video, rank d tracks videos [d B', (d + 1)
+    B') of the padded B' a rank, and every rank returns all B videos' arrays
+    (the padding dropped)."""
     dev = run.device
+    R0 = torch.as_tensor(np.asarray(R0, np.float32) if not torch.is_tensor(R0) else R0).float()
+    t0 = torch.as_tensor(np.asarray(t0, np.float32) if not torch.is_tensor(t0) else t0).float()
+    B = R0.shape[0]
+    if mesh is not None:
+        per = -(-B // mesh.dp)
+        keep = [min(b, B - 1) for b in range(mesh.dp_rank * per, (mesh.dp_rank + 1) * per)]
+        R0, t0, videos = R0[keep], t0[keep], videos[keep]
     videos = torch.as_tensor(videos, dtype=torch.float32, device=dev)
-    R = torch.as_tensor(np.asarray(R0, np.float32) if not torch.is_tensor(R0) else R0, device=dev).float()
-    t = torch.as_tensor(np.asarray(t0, np.float32) if not torch.is_tensor(t0) else t0, device=dev).float()
+    R, t = R0.to(dev), t0.to(dev)
     out = {"R": [], "t": [], "cost": [], "num_iters": []}
     for k in range(videos.shape[1]):
         R, t, cost, iters = run(R, t, videos[:, k])
         for name, v in zip(out, (R, t, cost, iters)):
             out[name].append(v)
-    return {name: torch.stack(v).cpu().numpy() for name, v in out.items()}
+    out = {name: torch.stack(v) for name, v in out.items()}
+    if mesh is not None:
+        out = {name: _from_every_rank(v, mesh)[:, :B] for name, v in out.items()}
+    return {name: v.cpu().numpy() for name, v in out.items()}
+
+
+def _from_every_rank(v: torch.Tensor, mesh) -> torch.Tensor:
+    """(T, B', ...) of each rank of the ``dp`` group -> (T, dp B', ...) on
+    every rank, rank d's block at [d B', (d + 1) B'): one broadcast a rank."""
+    import torch.distributed as dist
+
+    blocks = []
+    for d, src in enumerate(mesh.dp_ranks()):
+        block = v.contiguous() if d == mesh.dp_rank else torch.empty_like(v, memory_format=torch.contiguous_format)
+        dist.broadcast(block, src=src, group=mesh.dp_group)
+        blocks.append(block)
+    return torch.cat(blocks, dim=1)

@@ -120,23 +120,50 @@ def train_nerf_asset(object_path, n_steps: int = 10000, downscale: int = 1, batc
     """Train the hash-grid NeRF on transforms.json and snapshot it, on
     ``device`` (None is the CUDA card). ``save_every`` > 0 checkpoints the
     snapshot every that many steps; ``resume`` warm-starts from an existing
-    snapshot. One device only: ``devices`` > 1 (the JAX package's (dp, tp)
-    mesh) raises. Returns (field, info)."""
+    snapshot. ``devices`` > 1 runs the same loop in that many processes
+    over a (dp, tp) mesh, dp = devices / tp (``parallel/mesh.py``: rank r
+    on ``cuda:r``, or gloo on the CPU); rank 0 writes the snapshots. 0 or 1
+    is one device, with no process group. Returns (field, info)."""
+    from pixtrack_tpu_torch.nerf.snapshot import load_snapshot
+
+    dev = resolve(device)
+    paths = layout(object_path)
+    if devices and devices > 1:
+        from pixtrack_tpu_torch.parallel.mesh import check_devices, cpu_threads, launch
+
+        check_devices(devices, tp, dev)
+    if not paths["transforms"].exists():
+        # colmap2ingp: convert the SfM model before training when it hasn't been
+        build_nerf_assets(SceneModel.load(paths["ref_sfm"]), object_path)
+    paths["snapshot"].parent.mkdir(parents=True, exist_ok=True)
+    kw = dict(n_steps=n_steps, downscale=downscale, batch_rays=batch_rays, save_every=save_every, resume=resume,
+              verbose=verbose)
+    if not (devices and devices > 1):
+        return _train_nerf(object_path, dev, None, n_coarse=n_coarse, n_fine=n_fine, **kw)
+    info = launch(_train_nerf_rank, devices, object_path, devices, tp, dev.type,
+                  dict(n_coarse=n_coarse, n_fine=n_fine, **kw),
+                  threads=cpu_threads(devices) if dev.type == "cpu" else None)
+    return load_snapshot(paths["snapshot"], device=dev)[0], info
+
+
+def _train_nerf_rank(object_path, devices: int, tp: int, kind: str, kw: dict) -> dict:
+    """One rank of ``train_nerf_asset`` over the mesh; returns the info."""
+    from pixtrack_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(devices, tp, kind)
+    return _train_nerf(object_path, mesh.device, mesh, **kw)[1]
+
+
+def _train_nerf(object_path, dev, mesh, n_steps, downscale, batch_rays, save_every, resume, verbose, n_coarse,
+                n_fine):
     from pixtrack_tpu_torch.nerf.dataset import NerfDataset
     from pixtrack_tpu_torch.nerf.snapshot import load_snapshot, save_snapshot
     from pixtrack_tpu_torch.nerf.train import TrainConfig, train
 
-    if (devices and devices > 1) or tp != 1:
-        raise NotImplementedError("multi-device NeRF training is not ported (ROADMAP Queue 1, scale-out item)")
-    dev = resolve(device)
     paths = layout(object_path)
-    if not paths["transforms"].exists():
-        # colmap2ingp: convert the SfM model before training when it hasn't been
-        build_nerf_assets(SceneModel.load(paths["ref_sfm"]), object_path)
     ds = NerfDataset.from_transforms(paths["transforms"], downscale=downscale)
     aabb = estimate_aabb_from_scene(SceneModel.load(paths["ref_sfm"]), NerfTransform.load(paths["nerf2sfm"]))
     field = load_snapshot(paths["snapshot"], device=dev)[0] if resume and paths["snapshot"].exists() else None
-    paths["snapshot"].parent.mkdir(parents=True, exist_ok=True)
 
     # the callback fires on log_every boundaries, so a save_every below it
     # would otherwise never checkpoint
@@ -151,8 +178,9 @@ def train_nerf_asset(object_path, n_steps: int = 10000, downscale: int = 1, batc
     cfg = TrainConfig(n_steps=n_steps, batch_rays=batch_rays, n_coarse=n_coarse, n_fine=n_fine,
                       log_every=log_every)
     field, info = train(ds, aabb, cfg, field=field, callback=checkpoint if (save_every or verbose) else None,
-                        device=dev)
-    save_snapshot(paths["snapshot"], field, extra={"aabb": aabb})
+                        device=dev, mesh=mesh)
+    if mesh is None or mesh.rank == 0:
+        save_snapshot(paths["snapshot"], field, extra={"aabb": aabb})
     return field, info
 
 

@@ -21,7 +21,9 @@ runs on the CPU) where JAX has ``--platform``, and ``nerf-sfm --no_h5``
 (skip features.h5 / matches.h5, which need h5py). ``bench`` stops with a
 message: the port has no benchmark yet (``bench.py`` measures the JAX
 package). ``track-batch`` refines every video's frame k in one batched
-step on the one card; ``--devices`` above 1 stops with a message.
+step, over ``--devices`` cards (0: every visible card), one process a card;
+``train-nerf --devices N --tp T`` trains over a (dp, tp) mesh of N processes
+(``parallel/mesh.py``; with ``--device cpu`` the processes run on the CPU).
 ``reconstruct --detector dense | superpoint`` and ``--matcher learned`` run
 the learned components when their checkpoints are found (``auto`` picks
 them then); asked for without one, they stop with a message.
@@ -181,21 +183,40 @@ def _cmd_track_batch(args):
     """Several videos at once (``parallel/video.py``): each timestep refines
     every video's current frame in one batched step; each video's pose chain
     is its own. The cold start is the upright reference pose for every
-    video. Writes ``poses_{b:02d}.pkl`` per video and prints the JAX
-    package's summary keys."""
-    import pickle
+    video. Over ``--devices`` N > 1 (0: every visible card) the videos are
+    split over N processes, one a card. Writes ``poses_{b:02d}.pkl`` per
+    video and prints the JAX package's summary keys."""
+    import torch
 
     from pixtrack_tpu_torch._device import resolve
+    from pixtrack_tpu_torch.parallel.mesh import check_devices, cpu_threads, launch
+
+    device = resolve(args.device)
+    n = args.devices or (torch.cuda.device_count() if device.type == "cuda" else 1)
+    if n <= 1:
+        return _track_batch(args, device, None)
+    check_devices(n, 1, device)
+    launch(_track_batch_rank, n, args, n, device.type, threads=cpu_threads(n) if device.type == "cpu" else None)
+
+
+def _track_batch_rank(args, n: int, kind: str):
+    from pixtrack_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(n, 1, kind)
+    _track_batch(args, mesh.device, mesh)
+
+
+def _track_batch(args, device, mesh):
+    """``track-batch`` on ``device``; with ``mesh``, this rank's share of the
+    videos, rank 0 writing the files and the summary."""
+    import pickle
+
     from pixtrack_tpu_torch.geometry import Pose
     from pixtrack_tpu_torch.parallel.video import make_production_video_tracker, track_video_batch
     from pixtrack_tpu_torch.tracking.refiner import infer_camera_from_image
     from pixtrack_tpu_torch.utils.config import ObjectConfig, RunConfig, load_config
     from pixtrack_tpu_torch.utils.io import ImageIterator
 
-    if args.devices > 1:
-        raise SystemExit("track-batch: the port runs on one card; its batch is the tensors' leading axis "
-                         f"(--devices {args.devices} asked for a mesh)")
-    device = resolve(args.device)
     if args.config:
         obj_cfg, run_cfg = load_config(args.config)
     else:
@@ -220,7 +241,9 @@ def _cmd_track_batch(args):
     B = len(videos)
     R0 = np.tile(T0.R.numpy().astype(np.float32), (B, 1, 1))
     t0 = np.tile(T0.t.numpy().astype(np.float32), (B, 1))
-    out = track_video_batch(run, R0, t0, batch)
+    out = track_video_batch(run, R0, t0, batch, mesh=mesh)
+    if mesh is not None and mesh.rank != 0:
+        return
 
     out_dir = Path(args.out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -239,9 +262,9 @@ def _cmd_track_batch(args):
     print(json.dumps({
         "n_videos": B,
         "n_frames": int(T_len),
-        "mesh": {"dp": 1, "tp": 1},
+        "mesh": {"dp": 1, "tp": 1} if mesh is None else mesh.shape,
         "mean_cost_final": float(np.mean(out["cost"][-1])),
-    }))
+    }), flush=True)
 
 
 def _cmd_track_ycb(args):
@@ -425,13 +448,14 @@ def main(argv=None):
     s.add_argument("--frames", type=int)
     s.set_defaults(fn=_cmd_track)
 
-    s = sub.add_parser("track-batch", help="track several videos at once, batched on the one card")
+    s = sub.add_parser("track-batch", help="track several videos at once, split over the cards")
     s.add_argument("--object_path", required=True)
     s.add_argument("--query", nargs="+", required=True, help="one frames dir per video")
     s.add_argument("--config")
     s.add_argument("--out_dir", default="out_batch")
     s.add_argument("--frames", type=int, default=None)
-    s.add_argument("--devices", type=int, default=0, help="one device only: more than 1 raises")
+    s.add_argument("--devices", type=int, default=0,
+                   help="processes, one a card (0 = every visible card; with --device cpu, 0 = one)")
     s.set_defaults(fn=_cmd_track_batch)
 
     s = sub.add_parser("track-ycb", help="YCB-Video evaluation")
@@ -492,8 +516,10 @@ def main(argv=None):
     s.add_argument("--n_coarse", type=int, default=64, help="stratified samples per ray")
     s.add_argument("--n_fine", type=int, default=32, help="importance samples per ray (0 disables fine pass)")
     s.add_argument("--resume", action="store_true", help="warm-start from an existing snapshot")
-    s.add_argument("--devices", type=int, default=0, help="one device only: more than 1 raises")
-    s.add_argument("--tp", type=int, default=1, help="one device only: more than 1 raises")
+    s.add_argument("--devices", type=int, default=0,
+                   help="train over an N-process (dp, tp) mesh, one process a card (0/1 = single device; rays "
+                        "shard over dp, the hash table over tp)")
+    s.add_argument("--tp", type=int, default=1, help="tensor-parallel width of the mesh (divides --devices)")
     s.set_defaults(fn=_cmd_train_nerf)
 
     s = sub.add_parser("nerf-sfm", help="NeRF re-render + triangulation")

@@ -109,8 +109,8 @@ def test_cli_asset_subcommands_end_to_end(tmp_path, monkeypatch):
     assert len(ref.image_ids) == 12 and len(ref.point_ids) > 0
     assert sorted(p.name for p in paths["mapping"].glob("*.png")) == sorted(ref.names)
 
-    with pytest.raises(NotImplementedError):
-        cli(["--device", "cpu", "train-nerf", "--object_path", str(root), "--devices", "2"])
+    with pytest.raises(ValueError, match="divide"):  # a mesh that cannot be laid out stops before training
+        cli(["--device", "cpu", "train-nerf", "--object_path", str(root), "--devices", "2", "--tp", "3"])
     cli(["--device", "cpu", "train-nerf", "--object_path", str(root), "--n_steps", "2", "--batch_rays", "256",
          "--n_coarse", "8", "--n_fine", "4", "--save_every", "0"])
     tf, jtf = NerfTransform.load(paths["nerf2sfm"]), jcompute_nerf_transform(ref)

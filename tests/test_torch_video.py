@@ -1,5 +1,6 @@
 """Parity of the port's batched video tracker (``parallel/video.py``,
-``parallel/mesh.py``, CLI ``track-batch``) with the JAX package on the CPU.
+``parallel/mesh.py``, CLI ``track-batch``) with the JAX package on the CPU,
+on one process and over several.
 
 The JAX side runs as its own tests run it: sharded over the virtual
 8-device CPU mesh (tests/conftest.py), the reference renders through its
@@ -28,6 +29,21 @@ Tolerances:
   the cost's last bits, so ROADMAP's +-3 on the fine level does not hold);
 - ``track-batch`` through the CLI against the same calls through the API:
   equal to the bit.
+
+Over several processes (``track_video_batch(mesh=...)``, ``track-batch
+--devices``; gloo ranks spawned by the tests on the CPU, one thread each,
+a 60 s collective timeout, a join timeout; the rank functions in
+tests/scaleout_ranks.py, which imports no JAX):
+- 2 ranks against the one-process batch, B = 4 and B = 3 (padded to 4 by
+  repeating the last video): equal to the bit (each problem's LM is
+  batch-independent, ``test_batched_align_equals_unbatched_calls``; the
+  renders and pyramids are per image; measured equal, also at 1, 2 and 4
+  CPU threads); B = 4 against JAX's sharded tracker at the tolerances
+  above (equal to the one-process batch, so the gaps measured above);
+- ``track-batch --devices 2 --device cpu`` against ``--devices 1``: the
+  same ``poses_*.pkl`` to the bit, the summary's mesh {"dp": 2, "tp": 1};
+- ``train_nerf_asset(devices=2, tp=2, device="cpu")``: rank 0's snapshot
+  loads in the one-process port and equals the field returned.
 """
 
 import json
@@ -58,6 +74,7 @@ from pixtrack_tpu_torch.nerf.render import RenderConfig
 from pixtrack_tpu_torch.parallel import batch_align, make_production_video_tracker, make_video_tracker
 from pixtrack_tpu_torch.parallel import track_video_batch
 
+import scaleout_ranks
 from synthetic_world import look_at_w2c, sphere_surface_points
 from test_torch_align import _problem
 from test_torch_cli import object_dir, port  # noqa: F401  (the module-scoped object folder)
@@ -162,7 +179,9 @@ def world(tmp_path_factory):
     videos of T = 3 frames (tests/test_parallel_production.py's orbits),
     rendered once by the JAX testbed; each video starts from its first
     frame's pose retracted by a numpy draw."""
-    w = paired_world(tmp_path_factory.mktemp("video"), res=96, n_frames=1, n_coarse=48)
+    d = tmp_path_factory.mktemp("video")
+    w = paired_world(d, res=96, n_frames=1, n_coarse=48)
+    w.dir = d
     B, T_len = 4, 3
     gts, vids = [], []
     for b in range(B):
@@ -238,11 +257,10 @@ def _production(world, unet: bool):
             FeatureExtractor(HandcraftedExtractor(strides=(1, 4), device=CPU)))
 
 
-@pytest.mark.parametrize("unet", [False, True], ids=["handcrafted_b4", "unet_b2"])
-def test_production_video_batch_matches_jax(world, unet):
-    """make_production_video_tracker + track_video_batch over the videos
-    (B = 4, T = 3 with the handcrafted pyramid; B = 2, T = 2 with the
-    shipped UNet in bf16): every frame of every video against JAX's."""
+def _production_batch(world, unet: bool):
+    """make_production_video_tracker + track_video_batch of both packages
+    over the videos (B = 4, T = 3 with the handcrafted pyramid; B = 2, T = 2
+    with the shipped UNet in bf16): (JAX's arrays, the port's)."""
     B, T_len = (2, 2) if unet else (4, 3)
     jext, text = _production(world, unet)
     kw = dict(reference_scale=0.5, n_points=400)
@@ -253,13 +271,51 @@ def test_production_video_batch_matches_jax(world, unet):
                                          align_cfg=AlignConfig(num_iters=30),
                                          rcfg=RenderConfig(n_coarse=48, n_fine=0, perturb=False), **kw)
     videos = world.videos[:B, :T_len]
-    jout = j_track_video_batch(jrun, world.R0[:B], world.t0[:B], videos)
-    tout = track_video_batch(trun, world.R0[:B], world.t0[:B], videos)
+    return (j_track_video_batch(jrun, world.R0[:B], world.t0[:B], videos),
+            track_video_batch(trun, world.R0[:B], world.t0[:B], videos))
+
+
+@pytest.fixture(scope="module")
+def handcrafted_b4(world):
+    """The handcrafted batch of both packages (B = 4, T = 3), shared by the
+    parity test and the two-rank test; and the same tracker's batches of B
+    = 4 and B = 3 over 2 gloo ranks (tests/scaleout_ranks.py), started
+    first so that they run beside JAX's: call the third item for their
+    arrays."""
+    res = 96
+    cam_args = (res * 1.1, res * 1.1, (res - 1) / 2, (res - 1) / 2, res, res)
+    ranks = scaleout_ranks.in_background(scaleout_ranks.video_batches, 2, 2, str(world.dir), cam_args,
+                                         [world.videos, world.videos[:3]], world.R0, world.t0, 48)
+    return (*_production_batch(world, unet=False), ranks)
+
+
+@pytest.mark.parametrize("unet", [False, True], ids=["handcrafted_b4", "unet_b2"])
+def test_production_video_batch_matches_jax(world, unet, request):
+    """make_production_video_tracker + track_video_batch over the videos
+    (B = 4, T = 3 with the handcrafted pyramid; B = 2, T = 2 with the
+    shipped UNet in bf16): every frame of every video against JAX's."""
+    B, T_len = (2, 2) if unet else (4, 3)
+    jout, tout = _production_batch(world, unet) if unet else request.getfixturevalue("handcrafted_b4")[:2]
     assert tout["R"].shape == (T_len, B, 3, 3) and np.isfinite(tout["cost"]).all()
     _assert_close(jout, tout)
     # what the JAX test holds its own chain to: each video's last frame within 3 deg
     for b in range(B):
         assert _rot_deg(tout["R"][-1, b], np.asarray(world.gts[b][T_len - 1].R)) < 3.0
+
+
+def test_video_batch_over_two_ranks(handcrafted_b4):
+    """track_video_batch over 2 gloo ranks spawned on the CPU (parallel/
+    mesh.py's launch, one thread each), each building the handcrafted
+    production tracker over this world: B = 4 and B = 3 (padded to 4 by
+    repeating the last video) against the one-process batch of the same
+    videos, and B = 4 against JAX's sharded tracker."""
+    jout, tout, ranks = handcrafted_b4
+    four, three = ranks()
+    for out, B in ((four, 4), (three, 3)):
+        assert set(out) == set(tout) and out["R"].shape == (3, B, 3, 3)
+        for k, v in tout.items():
+            np.testing.assert_array_equal(out[k], v[:, :B], err_msg=f"B = {B} {k}")
+    _assert_close(jout, four)
 
 
 def test_track_batch_through_the_cli_matches_the_api(object_dir, tmp_path, capsys):  # noqa: F811
@@ -308,9 +364,85 @@ def test_track_batch_through_the_cli_matches_the_api(object_dir, tmp_path, capsy
             assert rec["cost"] == float(out["cost"][k, b]) and rec["success"] == bool(np.isfinite(out["cost"][k, b]))
 
 
-def test_track_batch_refuses_a_mesh(object_dir, tmp_path):  # noqa: F811
-    with pytest.raises(SystemExit, match="one card"):
-        port(["track-batch", "--object_path", str(object_dir), "--query", str(tmp_path), "--devices", "4"])
+def test_track_batch_refuses_a_mesh(object_dir, tmp_path, monkeypatch):  # noqa: F811
+    """``--devices 4`` on the card with one card visible stops with a message
+    before any process starts."""
+    from pixtrack_tpu_torch.pipelines import cli as tcli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(RuntimeError, match="asks for 4 cards; 1 visible"):
+        tcli.main(["track-batch", "--object_path", str(object_dir), "--query", str(tmp_path), "--devices", "4"])
+
+
+def test_track_batch_over_two_processes(object_dir, tmp_path, capfd):  # noqa: F811
+    """``track-batch --devices 2 --device cpu`` over three videos (two
+    ranks, one padded video) against ``--devices 1``, the two runs side by
+    side: the same files."""
+    import shutil
+    import threading
+
+    from pixtrack_tpu_torch.pipelines.assets import layout
+
+    paths = layout(object_dir)
+    names = sorted(p.name for p in paths["mapping"].iterdir())[:2]
+    queries = []
+    for v, n in (("v0", 2), ("v1", 1), ("v2", 1)):
+        (tmp_path / v).mkdir()
+        for name in names[:n]:
+            shutil.copy(paths["mapping"] / name, tmp_path / v / name)
+        queries.append(str(tmp_path / v))
+
+    def run(n):
+        port(["track-batch", "--object_path", str(object_dir), "--query", *queries, "--out_dir",
+              str(tmp_path / f"out{n}"), "--devices", str(n)])
+
+    two = threading.Thread(target=run, args=(2,))
+    two.start()
+    run(1)
+    two.join()
+    summaries = {}
+    for line in capfd.readouterr().out.strip().splitlines():
+        if line.startswith("{"):
+            summary = json.loads(line)
+            summaries[summary["mesh"]["dp"]] = summary
+    assert sorted(summaries) == [1, 2] and summaries[2]["mesh"] == {"dp": 2, "tp": 1}
+    assert {k: v for k, v in summaries[1].items() if k != "mesh"} == {k: v for k, v in summaries[2].items()
+                                                                      if k != "mesh"}
+    for b in range(3):
+        with open(tmp_path / "out1" / f"poses_{b:02d}.pkl", "rb") as f:
+            one = pickle.load(f)
+        with open(tmp_path / "out2" / f"poses_{b:02d}.pkl", "rb") as f:
+            two = pickle.load(f)
+        assert sorted(one) == sorted(two) and len(one) == (2 if b == 0 else 1)
+        for name, rec in one.items():
+            np.testing.assert_array_equal(two[name]["T_refined"], rec["T_refined"])
+            assert two[name]["cost"] == rec["cost"] and two[name]["success"] == rec["success"]
+
+
+def test_snapshot_of_the_mesh_trainer_loads_in_one_process(object_dir, tmp_path):  # noqa: F811
+    """train_nerf_asset(devices=2, tp=2, device="cpu") on a copy of the
+    object folder (the house at 96 px): rank 0's snapshot (the full-width
+    field, 2 steps) loads in the single-device port and equals the field
+    returned; --tp that does not divide --devices stops first."""
+    import shutil
+
+    from pixtrack_tpu_torch.nerf.snapshot import load_snapshot
+    from pixtrack_tpu_torch.pipelines import assets
+
+    root = tmp_path / "house"
+    shutil.copytree(object_dir, root)
+    with pytest.raises(ValueError, match="divide"):
+        assets.train_nerf_asset(root, devices=2, tp=3, device="cpu")
+    field, info = assets.train_nerf_asset(root, n_steps=2, batch_rays=64, n_coarse=8, n_fine=4, devices=2, tp=2,
+                                          device="cpu")
+    assert len(info["history"]) == 0 and info["seconds"] > 0
+    loaded, extra = load_snapshot(assets.layout(root)["snapshot"], device="cpu")[:2]
+    assert type(loaded.encoding).__name__ == "HashEncoding" and len(extra["aabb"]) == 2
+    assert loaded.encoding.tables.shape == (16, 2, 1 << 19)
+    for (k, a), (_, b) in zip(loaded.named_parameters(), field.named_parameters()):
+        assert torch.equal(a, b), k
+    assert float(loaded.encoding.tables.detach().abs().max()) > 0
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
