@@ -8,19 +8,30 @@ Prints chip_smoke.py's lines for those phases, each phase's wall time and
 the total; the student's kernels are compared with their plain versions and
 reported, not gated (chip_smoke.py gates them at its own step counts).
 
-Then it places K1's tail on the fine-tuned student: over the 224x224x96 ray
-set, each ray of K1 and of its plain version against the exact (f64) sums
-(chip_smoke.py phase 3's per-ray rule: the kernel's share of rays beyond
-5e-3 at most 1.5 times the plain version's plus 1e-4); and for the ray
-furthest from the exact sums through K1, its 96 samples evaluated three
-ways (K2, which runs the same network from csrc/distilled_mlp.cuh; the
-plain version; the exact sums) and each set composited in f64, beside K1's
-own output for the ray. If K2's samples composite to within 1e-3 of K1's
-output, K1's compositing is not the fault and the tail is the network's.
+Phase 20's student distils the baked field, as Testbed.load_snapshot
+installs it. With ``--compare N`` the same snapshot is then distilled again
+at seeds 0..N-1 from both teachers, the vertex field (the recipe of the
+shipped student, build_mesh_bench_assets.py:155-161) and the baked field
+(phase 20's student is its seed 0), and each student's hold-out PSNR is
+printed beside the JAX build's (assets/mesh_world/meta.json), then one JSON
+line of them all.
 
-    python3 scripts_dev/asset_build_full.py [TRAIN_STEPS DISTILL_STEPS FINETUNE_STEPS]
+Then it places K1's tail on phase 20's fine-tuned student: over the
+224x224x96 ray set, each ray of K1 and of its plain version against the
+exact (f64) sums (chip_smoke.py phase 3's per-ray rule: the kernel's share
+of rays beyond 5e-3 at most 1.5 times the plain version's plus 1e-4); and
+for the ray furthest from the exact sums through K1, its 96 samples
+evaluated three ways (K2, which runs the same network from
+csrc/distilled_mlp.cuh; the plain version; the exact sums) and each set
+composited in f64, beside K1's own output for the ray. If K2's samples
+composite to within 1e-3 of K1's output, K1's compositing is not the fault
+and the tail is the network's.
+
+    python3 scripts_dev/asset_build_full.py [TRAIN_STEPS DISTILL_STEPS FINETUNE_STEPS] [--compare N]
 """
 
+import argparse
+import json
 import sys
 import time
 from pathlib import Path
@@ -84,13 +95,31 @@ def trace_k1_tail(device, rays):
         f"({'K1 composites them' if k1_vs_k2_comp <= 1e-3 else 'K1 COMPOSITES DIFFERENTLY'})")
 
 
+def student_psnr(device, cap, teacher: str, seed: int):
+    """Phase 20's recipe on the saved snapshot from ``teacher`` at ``seed``:
+    the student's hold-out PSNR (full, object)."""
+    from pixtrack_tpu_torch.nerf.distill import DistillConfig
+    from pixtrack_tpu_torch.nerf.testbed import Testbed
+
+    tb = Testbed(device=device)
+    tb.load_snapshot(chip_smoke.ASSET_WORKDIR / "weights.npz", bake=teacher == "baked")
+    tb.tighten_render_bounds()
+    tb.distill(config=DistillConfig(steps=chip_smoke.DISTILL_STEPS, octaves=10), seed=seed,
+               finetune_dataset=cap.ds, finetune_steps=chip_smoke.FINETUNE_STEPS)
+    return chip_smoke.holdout_psnr(tb, cap)
+
+
 def main() -> int:
     import torch
 
+    ap = argparse.ArgumentParser()
+    ap.add_argument("steps", type=int, nargs="*", default=[3000, 4000, 3000])
+    ap.add_argument("--compare", type=int, default=0, help="students from both teachers at seeds 0..N-1")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("asset_build_full: no CUDA device", file=sys.stderr)
         return 2
-    steps = [int(v) for v in sys.argv[1:4]] if len(sys.argv) > 3 else [3000, 4000, 3000]
+    steps = args.steps
     chip_smoke.TRAIN_STEPS, chip_smoke.DISTILL_STEPS, chip_smoke.FINETUNE_STEPS = steps
     chip_smoke.TRAIN_LOG_EVERY = steps[0] // 10
     device = torch.device("cuda:0")
@@ -100,9 +129,32 @@ def main() -> int:
 
     fused_mlp.build_kernels()
     t0 = time.perf_counter()
-    rays = chip_smoke.phase_assets(device, gate=False)[3]
+    *_, rays, student, cap, vertex, baked = chip_smoke.phase_assets(device, gate=False)
     chip_smoke.log(f"[full budget] train {steps[0]}, distill {steps[1]}, fine-tune {steps[2]} steps: "
                    f"{time.perf_counter() - t0:.1f} s")
+    if args.compare:
+        nerf = json.loads((REPO / "assets" / "mesh_world" / "meta.json").read_text())["nerf"]
+        jax = {"teacher": [nerf["psnr_holdout_full_db"], nerf["psnr_holdout_object_db"]],
+               "student": [nerf["psnr_distilled_vs_gt_db"], nerf["psnr_distilled_object_db"]]}
+        students = {"baked_0": list(student)}
+        for teacher in ("vertex", "baked"):
+            for seed in range(args.compare):
+                key = f"{teacher}_{seed}"
+                if key not in students:
+                    t1 = time.perf_counter()
+                    students[key] = list(student_psnr(device, cap, teacher, seed))
+                    full, obj = students[key]
+                    chip_smoke.log(f"[compare] the {teacher} field's student at seed {seed}: full / object "
+                                   f"{full:.2f} / {obj:.2f} dB ({time.perf_counter() - t1:.1f} s)")
+        gaps = {k: [round(t - v, 2) for t, v in zip(vertex if k.startswith("vertex") else baked, s)]
+                for k, s in students.items()}
+        chip_smoke.log(f"[compare] teachers, full / object (dB): vertex {vertex[0]:.2f} / {vertex[1]:.2f}, baked "
+                       f"{baked[0]:.2f} / {baked[1]:.2f} (the JAX build's vertex teacher {jax['teacher']}); students "
+                       f"{ {k: [round(v, 2) for v in s] for k, s in students.items()} } (the JAX build's student "
+                       f"{jax['student']}); each student under its teacher {gaps} (the JAX build's "
+                       f"{[round(t - v, 2) for t, v in zip(jax['teacher'], jax['student'])]})")
+        print(json.dumps({"steps": steps, "teacher_vertex": list(vertex), "teacher_baked": list(baked),
+                          "students": students, "student_under_teacher": gaps, "jax_build": jax}), flush=True)
     trace_k1_tail(device, rays)
     return 0
 

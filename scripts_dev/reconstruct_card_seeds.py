@@ -12,7 +12,8 @@ port's side; the JAX side is ``scripts_dev/reconstruct_jax.py`` on the CPU):
   draws (phase 30's check); with ``--cpu`` the same seeds of the port on the
   CPU beside them (the same draws: the generator is a seeded CPU one);
 - with ``--cli N``, what ``reconstruct`` runs over those images (the camera
-  it infers, 1024 keypoints) at seeds 0..N-1 (phase 31's margin);
+  it infers, 1024 keypoints) at seeds 0..N-1 (phase 31's margin), or at
+  seeds K..K+N-1 with ``--cli-first K``;
 - with ``--ring SEED ...``, phase 32's ring capture of the house at those
   seeds, each with its outcome and split, and phase 33's open loop over the
   first seed's model (on the card only).
@@ -22,7 +23,7 @@ left out). ``--no-repeat-rule`` lets the RANSACs choose samples that draw
 one correspondence twice, as the JAX package's do, to measure what the
 port's rule (``incremental._repeats``) does.
 
-    python3 scripts_dev/reconstruct_card_seeds.py [--device cpu] [--seeds N] [--cpu] [--cli N] \\
+    python3 scripts_dev/reconstruct_card_seeds.py [--device cpu] [--seeds N] [--cpu] [--cli N [--cli-first K]] \\
         [--ring SEED ...] [--no-repeat-rule]
 
 Prints one JSON line per run, and on the card the card's name and power limit.
@@ -49,6 +50,7 @@ def main():
     ap.add_argument("--seeds", type=int, default=3, help="arc seeds to run")
     ap.add_argument("--cpu", action="store_true", help="also run each arc seed on the CPU")
     ap.add_argument("--cli", type=int, default=0, help="seeds of what `reconstruct` runs over the arc (0 = none)")
+    ap.add_argument("--cli-first", type=int, default=0, help="the first of the --cli seeds")
     ap.add_argument("--ring", type=int, nargs="*", default=[], help="ring seeds to run")
     ap.add_argument("--no-repeat-rule", action="store_true")
     args = ap.parse_args()
@@ -88,7 +90,7 @@ def main():
                                              seed=seed, device="cpu")
                 row(f"arc{seed}_cpu", rec, truth, wall)
         h, w = next(iter(views.values())).shape[:2]
-        for seed in range(args.cli):
+        for seed in range(args.cli_first, args.cli_first + args.cli):
             rec, wall, split = cs.run_mapper(views, cs.cli_camera(h, w), f"cli seed {seed}", max_keypoints=1024,
                                              nms_radius=1, seed=seed, device=args.device)
             row(f"cli{seed}", rec, truth, wall, split)
